@@ -1,0 +1,119 @@
+"""The CUDA packed-attention kernel against its plain PyTorch version, on the
+card.
+
+These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); elsewhere
+they skip.  They import no JAX, so they also run on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
+
+Tolerances: 2e-5 absolute in f32 (sums in another order) and 5e-2 in bf16,
+as tests/test_ops.py uses for the TPU kernel.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from vln_magic_tpu_torch.ops import attention
+
+pytestmark = pytest.mark.cuda
+HERE = os.path.dirname(__file__)
+TOLS = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+    """A CUDA tensor must never reach the plain version."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    plain = attention.packed_attention_reference
+    monkeypatch.setattr(attention, "packed_attention_reference", refuse)
+    return plain
+
+
+def _inputs(dev, b, h, lq, lk, hd, sprel, dtype, seed, masked_row=False):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    d = h * hd
+    q, k, v = (t(b, l, d).to(dtype) for l in (lq, lk, lk))
+    mask = torch.zeros((b, lk), device=dev)
+    mask[:, -max(1, lk // 8):] = -1e9
+    if masked_row:
+        mask[b - 1] = -1e9
+    return q, k, v, mask, t(b, h, lq, lk) if sprel else None
+
+
+# (B, H, Lq, Lk, hd, sprel, fully masked row): main-path widths at a small
+# batch, an odd batch, the ungrouped layout, RxR's 250 keys, hd 128
+CASES = [(4, 2, 200, 200, 64, False, False),
+         (4, 2, 128, 128, 64, True, False),
+         (3, 2, 37, 45, 64, True, True),
+         (4, 4, 8, 8, 16, False, False),
+         (2, 3, 20, 250, 32, False, True),
+         (2, 1, 5, 33, 128, True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,lq,lk,hd,sprel,masked", CASES)
+def test_kernel_matches_plain(cuda, no_plain, dtype, b, h, lq, lk, hd, sprel,
+                              masked):
+    q, k, v, mask, sp = _inputs(cuda, b, h, lq, lk, hd, sprel, dtype,
+                                seed=lq + lk, masked_row=masked)
+    before = attention.packed_attention.launches
+    got = attention.packed_attention(q, k, v, mask, sp, num_heads=h)
+    torch.cuda.synchronize()
+    assert attention.packed_attention.launches == before + 1
+    want = no_plain(q, k, v, mask, sp, h)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOLS[dtype], err
+
+
+def test_kernel_rejects_an_unsupported_head_dim(cuda, no_plain):
+    q, k, v, mask, _ = _inputs(cuda, 2, 2, 4, 4, 12, False, torch.float32, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.packed_attention(q, k, v, mask, None, num_heads=2)
+
+
+def test_golden_decode_with_the_kernel(cuda):
+    """tests/test_golden.py's decode in f32 with the kernel on."""
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.config import (EnvConfig, MagicConfig,
+                                            ModelConfig, TrainConfig)
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    cfg = MagicConfig(
+        model=ModelConfig(vocab_size=400, hidden_size=64,
+                          num_attention_heads=2, num_l_layers=2,
+                          num_pano_layers=1, num_x_layers=2,
+                          image_feat_size=24, max_position_embeddings=64,
+                          use_pallas_attention=True),
+        env=EnvConfig(max_action_len=8, max_gmap_len=24, max_instr_len=48),
+        train=TrainConfig(batch_size=8))
+    world = make_synthetic_world(num_scans=2, nodes_per_scan=20, feat_dim=24,
+                                 seed=777)
+    params = dict(np.load(os.path.join(HERE, "fixtures",
+                                       "golden_params_777.npz")))
+    nav = Navigator(cfg, world, params=params, device=cuda)
+    items = make_synthetic_instructions(world, 8, np.random.default_rng(777),
+                                        vocab_size=400, min_path=3,
+                                        max_path=6)
+    before = attention.packed_attention.launches
+    _, preds = nav.evaluate(items, batch_size=8)
+    assert attention.packed_attention.launches > before
+    with open(os.path.join(HERE, "golden_decode.json")) as f:
+        assert [p["trajectory_idx"] for p in preds] == json.load(f)

@@ -1,0 +1,110 @@
+"""Greedy-decode navigation agent (port of
+``vln_magic_tpu/agent/navigator.py``, wave path)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import MagicConfig
+from ..env.world import World
+from ..models.vlnbert import DualScaleVLNBert
+from ..utils.device import resolve_device
+from ..utils.weights import init_params, load_flax_params
+from .evaluator import Evaluator, build_trajectories
+from .rollout import Rollout, Tables, init_episodes
+
+
+def pad_instructions(items, max_len: int, pad_id: int = 1):
+    """[B, L] token ids + mask from variable-length encodings; L is
+    bucketed to a multiple of 16, capped at ``max_len``."""
+    b = len(items)
+    L = min(max(len(it["instr_encoding"]) for it in items), max_len)
+    L = min(((L + 15) // 16) * 16, max_len)
+    ids = np.full((b, L), pad_id, dtype=np.int64)
+    mask = np.zeros((b, L), dtype=bool)
+    for i, it in enumerate(items):
+        enc = np.asarray(it["instr_encoding"])[:L]
+        ids[i, : len(enc)] = enc
+        mask[i, : len(enc)] = True
+    return ids, mask
+
+
+def episodes_from_items(tables: Tables, items, hidden_size: int,
+                        max_gt_len: int = 24):
+    b = len(items)
+    scan = np.array([it["scan_idx"] for it in items], np.int64)
+    start = np.array([it["path_idx"][0] for it in items], np.int64)
+    heading = np.array([it["heading"] for it in items], np.float32)
+    gt_path = np.full((b, max_gt_len), -1, np.int64)
+    gt_len = np.zeros((b,), np.int64)
+    for i, it in enumerate(items):
+        p = np.asarray(it["path_idx"])
+        gt_path[i, : len(p)] = p
+        gt_len[i] = len(p)
+    return init_episodes(tables, scan, start, heading, gt_path, gt_len,
+                         hidden_size)
+
+
+class Navigator:
+    """Greedy-decode agent: world tables, the model, and ``evaluate``.
+
+    ``params``: flat flax params (``utils.weights.load_flax_params``);
+    without them the weights are random from ``seed`` (default
+    ``cfg.train.seed``).  ``device`` defaults to ``"cuda"``."""
+
+    def __init__(self, cfg: MagicConfig, world: World, params=None,
+                 seed: int | None = None, device="cuda"):
+        self.cfg = cfg
+        self.world = world
+        self.device = resolve_device(device)
+        self.tables = Tables.from_world(world.tables, self.device)
+        self.model = DualScaleVLNBert(
+            cfg.model, dtype=getattr(torch, cfg.train.compute_dtype),
+            device=self.device)
+        if params is None:
+            init_params(self.model, cfg.train.seed if seed is None else seed)
+        else:
+            load_flax_params(self.model, params)
+        self.rollout = Rollout(self.tables, cfg.env, self.model)
+
+    def run_items(self, items, feedback="argmax", ensemble_n=1):
+        txt_ids, txt_masks = pad_instructions(items, self.cfg.env.max_instr_len)
+        state = episodes_from_items(self.tables, items,
+                                    self.cfg.model.hidden_size)
+        aux = self.rollout.run(
+            state, torch.from_numpy(txt_ids).to(self.device),
+            torch.from_numpy(txt_masks).to(self.device), feedback,
+            ensemble_n=ensemble_n)
+        return state, aux
+
+    def evaluate(self, items, feedback="argmax", batch_size=None,
+                 ensemble_n=1, stream=None):
+        """Greedy decode + metrics over an item list, in waves of
+        ``batch_size`` (the tail wave is padded with copies of its last
+        item).  Streaming is not ported: ``stream=True`` raises."""
+        if stream:
+            raise NotImplementedError(
+                "streaming evaluation is not ported to vln_magic_tpu_torch "
+                "yet (see ROADMAP.md)")
+        bs = batch_size or self.cfg.train.batch_size
+        preds = []
+        gmap_overflow = semantic_steps = 0
+        for i in range(0, len(items), bs):
+            chunk = items[i : i + bs]
+            n_real = len(chunk)
+            if n_real < bs:
+                chunk = chunk + [chunk[-1]] * (bs - n_real)
+            _, aux = self.run_items(chunk, feedback, ensemble_n=ensemble_n)
+            gmap_overflow += int(aux["gmap_overflow"])
+            semantic_steps += int(aux["semantic_steps"])
+            preds.extend(build_trajectories(
+                self.world, chunk, aux["actions"].cpu().numpy(),
+                aux["stop_node"].cpu().numpy(),
+                aux["final_cur"].cpu().numpy())[:n_real])
+        avg, per_item = Evaluator(self.world, items).eval_metrics(preds)
+        # episodes whose observed-node count outgrew max_gmap_len (tokens
+        # truncated), and the live episode-steps decoded (padding included)
+        avg["gmap_overflow"] = float(gmap_overflow)
+        avg["semantic_steps"] = float(semantic_steps)
+        return (avg, per_item), preds

@@ -1,0 +1,195 @@
+"""Transformer building blocks, BERT/RoBERTa post-LN style.
+
+Port of ``vln_magic_tpu/models/layers.py``.  Module attribute names
+dot-join to the flax param paths (``attention.query``, ``attention_norm.
+LayerNorm_0``, ...), so ``utils.weights.load_flax_params`` maps one onto
+the other.  The port is eval-only: there is no dropout, and every call is
+the reference's ``deterministic=True`` call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import packed_attention
+
+NEG_INF = -1e9
+
+
+def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[B, Lk] bool -> additive attention bias [B, 1, 1, Lk]."""
+    bias = torch.zeros(mask.shape, dtype=dtype, device=mask.device)
+    return bias.masked_fill(~mask, NEG_INF)[:, None, None, :]
+
+
+class MultiHeadAttention(nn.Module):
+    """Scaled dot-product attention with an optional additive bias that
+    broadcasts against [B, H, Lq, Lk].  Returns (output, head-averaged
+    probabilities [B, Lq, Lk]).
+
+    ``use_packed`` sends the call to ``ops.attention.packed_attention`` (the
+    reference's ``use_pallas`` path, layers.py:74-105): Q/K/V go in packed,
+    a [B|1, 1, 1, Lk] bias becomes the mask and any other bias a full
+    [B, H, Lq, Lk] sprel, and zeros stand in for the probabilities.
+    """
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 use_packed: bool = False, softmax_in_dtype: bool = False,
+                 logits_f32: bool = False):
+        super().__init__()
+        self.h = num_heads
+        self.hd = hidden_size // num_heads
+        self.use_packed = use_packed
+        self.softmax_in_dtype = softmax_in_dtype
+        self.logits_f32 = logits_f32
+        self.query = nn.Linear(hidden_size, hidden_size)
+        self.key = nn.Linear(hidden_size, hidden_size)
+        self.value = nn.Linear(hidden_size, hidden_size)
+        self.out = nn.Linear(hidden_size, hidden_size)
+
+    def forward(self, q_input, kv_input, bias=None, precomputed_kv=None):
+        h, hd = self.h, self.hd
+        d = h * hd
+        q = self.query(q_input)
+        if precomputed_kv is not None:
+            # hoisted instruction K/V (text_cross_kv), packed or [B, L, H, hd]
+            k, v = precomputed_kv
+        else:
+            k = self.key(kv_input)
+            v = self.value(kv_input)
+        b, lq = q.shape[0], q.shape[1]
+        lk = k.shape[1]
+
+        if self.use_packed:
+            k = k.reshape(b, lk, d)
+            v = v.reshape(b, lk, d)
+            if bias is None:
+                mask_bias = q.new_zeros((b, lk), dtype=torch.float32)
+                sprel = None
+            elif bias.shape[-2] == 1 and bias.shape[-3] == 1:
+                mask_bias = bias[:, 0, 0, :].expand(b, lk).float().contiguous()
+                sprel = None
+            else:
+                mask_bias = q.new_zeros((b, lk), dtype=torch.float32)
+                sprel = bias.expand(b, h, lq, lk).float().contiguous()
+            ctx = packed_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), mask_bias, sprel,
+                                   num_heads=h)
+            probs = q.new_zeros((), dtype=torch.float32).expand(b, lq, lk)
+            return self.out(ctx), probs
+
+        q = q.reshape(b, lq, h, hd)
+        k = k.reshape(b, lk, h, hd)
+        v = v.reshape(b, lk, h, hd)
+        if self.logits_f32 and not self.softmax_in_dtype:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+                / math.sqrt(hd)
+            if bias is not None:
+                scores = scores + bias.float()
+            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        else:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            if bias is not None:
+                scores = scores + bias.to(scores.dtype)
+            if self.softmax_in_dtype:
+                probs = torch.softmax(scores, dim=-1)
+            else:
+                probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, lq, d)
+        return self.out(ctx), probs.mean(dim=1)
+
+
+class AddNorm(nn.Module):
+    def __init__(self, hidden_size: int, eps: float = 1e-12):
+        super().__init__()
+        self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=eps)
+
+    def forward(self, residual, x):
+        return self.LayerNorm_0(residual + x)
+
+
+class FeedForward(nn.Module):
+    """Exact-erf gelu by default; ``gelu_approx`` takes the tanh form."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int,
+                 gelu_approx: bool = False):
+        super().__init__()
+        self.approximate = "tanh" if gelu_approx else "none"
+        self.intermediate = nn.Linear(hidden_size, intermediate_size)
+        self.output = nn.Linear(intermediate_size, hidden_size)
+
+    def forward(self, x):
+        return self.output(F.gelu(self.intermediate(x),
+                                  approximate=self.approximate))
+
+
+def _attention(cfg, packed: bool) -> MultiHeadAttention:
+    return MultiHeadAttention(
+        cfg.hidden_size, cfg.num_attention_heads, packed,
+        cfg.softmax_compute_dtype_attn, cfg.attn_logits_f32)
+
+
+class TransformerLayer(nn.Module):
+    """Post-LN self-attention encoder layer (BERT structure)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.attention = _attention(cfg, cfg.use_pallas_attention)
+        self.attention_norm = AddNorm(d, eps)
+        self.ffn = FeedForward(d, cfg.intermediate_size, cfg.gelu_approximate)
+        self.ffn_norm = AddNorm(d, eps)
+
+    def forward(self, x, mask=None, bias=None):
+        attn_bias = None
+        if mask is not None:
+            attn_bias = mask_to_bias(mask, x.dtype)
+        if bias is not None:
+            attn_bias = bias if attn_bias is None else attn_bias + bias
+        attn_out, probs = self.attention(x, x, attn_bias)
+        x = self.attention_norm(x, attn_out)
+        x = self.ffn_norm(x, self.ffn(x))
+        return x, probs
+
+
+class CrossModalLayer(nn.Module):
+    """Vision-queries-language cross attention, optional language-queries-
+    vision attention (never packed, as in the reference), self-attention
+    over the visual stream with an optional additive bias, FFN."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        packed = cfg.use_pallas_attention
+        self.lang2visn = cfg.use_lang2visn_attn
+        self.crossattention = _attention(cfg, packed)
+        self.crossattention_norm = AddNorm(d, eps)
+        if self.lang2visn:
+            self.lang2visn_attention = _attention(cfg, False)
+            self.lang2visn_norm = AddNorm(d, eps)
+        self.self_attention = _attention(cfg, packed)
+        self.self_norm = AddNorm(d, eps)
+        self.ffn = FeedForward(d, cfg.intermediate_size, cfg.gelu_approximate)
+        self.ffn_norm = AddNorm(d, eps)
+
+    def forward(self, visn, lang, visn_mask, lang_mask, self_bias=None,
+                cross_kv=None):
+        lang_bias = mask_to_bias(lang_mask, visn.dtype)
+        visn_bias = mask_to_bias(visn_mask, visn.dtype)
+        x_out, x_probs = self.crossattention(visn, lang, lang_bias,
+                                             precomputed_kv=cross_kv)
+        visn = self.crossattention_norm(visn, x_out)
+        if self.lang2visn:
+            l_out, _ = self.lang2visn_attention(lang, visn, visn_bias)
+            lang = self.lang2visn_norm(lang, l_out)
+        self_attn_bias = visn_bias
+        if self_bias is not None:
+            self_attn_bias = self_attn_bias + self_bias
+        s_out, _ = self.self_attention(visn, visn, self_attn_bias)
+        visn = self.self_norm(visn, s_out)
+        visn = self.ffn_norm(visn, self.ffn(visn))
+        return visn, lang, x_probs

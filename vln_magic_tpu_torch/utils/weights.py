@@ -1,0 +1,85 @@
+"""Carry flax parameters into the torch model.
+
+The module tree of ``models.vlnbert.DualScaleVLNBert`` dot-joins to the flax
+param paths, so a flat ``{"params.<path>.<leaf>": array}`` dict maps onto it
+one to one: Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in],
+LayerNorm ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``, and
+``bias`` -> ``bias``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _flax_names(model: nn.Module) -> dict[str, tuple[torch.Tensor, bool]]:
+    """flax flat name -> (torch parameter, whether the array is transposed)."""
+    names = {}
+    for mod_name, mod in model.named_modules():
+        prefix = f"params.{mod_name}" if mod_name else "params"
+        if isinstance(mod, nn.Linear):
+            names[f"{prefix}.kernel"] = (mod.weight, True)
+            if mod.bias is not None:
+                names[f"{prefix}.bias"] = (mod.bias, False)
+        elif isinstance(mod, nn.LayerNorm):
+            names[f"{prefix}.scale"] = (mod.weight, False)
+            names[f"{prefix}.bias"] = (mod.bias, False)
+        elif isinstance(mod, nn.Embedding):
+            names[f"{prefix}.embedding"] = (mod.weight, False)
+    return names
+
+
+def load_flax_params(model: nn.Module, flat: dict) -> None:
+    """Copy ``flat`` (flax flat names -> arrays) into ``model`` in place.
+
+    Raises ``KeyError`` on a missing or unmatched name and ``ValueError`` on
+    a shape mismatch, so a partial load never passes silently."""
+    names = _flax_names(model)
+    missing = sorted(set(names) - set(flat))
+    unmatched = sorted(set(flat) - set(names))
+    if missing or unmatched:
+        raise KeyError(f"flax params do not match the model: missing "
+                       f"{missing[:5]} ({len(missing)}), unmatched "
+                       f"{unmatched[:5]} ({len(unmatched)})")
+    with torch.no_grad():
+        for name, (param, transpose) in names.items():
+            arr = np.array(flat[name], dtype=np.float32)    # a writable copy
+            if transpose:
+                arr = arr.T
+            if arr.shape != tuple(param.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != "
+                                 f"{tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def init_params(model: nn.Module, seed: int, std: float = 0.02) -> None:
+    """Random BERT-style weights from ``seed`` (a ``torch.Generator`` on the
+    CPU, so the values do not depend on the device): normal(0, ``std``)
+    matrices and embeddings, zero biases, unit LayerNorm scales."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, (param, transpose) in sorted(_flax_names(model).items()):
+            if name.endswith(".scale"):
+                val = torch.ones(param.shape)
+            elif name.endswith(".bias"):
+                val = torch.zeros(param.shape)
+            else:
+                val = torch.randn(param.shape, generator=gen) * std
+            param.copy_(val)
+
+
+def load_reference_checkpoint(path: str) -> dict[str, np.ndarray]:
+    """Read the reference ``.pt`` container (``{"vln_bert": {"state_dict":
+    {flax name: tensor}}}``, as vln_magic_tpu/utils/checkpoint.py writes it)
+    into a flat dict for :func:`load_flax_params`."""
+    states = torch.load(path, map_location="cpu", weights_only=True)
+    blob = states.get("vln_bert", states)
+    state_dict = blob.get("state_dict", blob)
+    flat = {}
+    for name, tensor in state_dict.items():
+        if name.startswith("module."):      # DDP prefix
+            name = name[len("module."):]
+        flat[name] = tensor.detach().numpy()
+    return flat
