@@ -2,35 +2,52 @@
 
     python3 chip_smoke.py
 
-Four phases, each printing one JSON line; any failure raises and exits
-non-zero:
+Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, the torch and CUDA
-   versions, and the time to build the CUDA kernel from
-   vln_magic_tpu_torch/csrc/ with nvcc for sm_90a;
-2. kernel vs plain: ``packed_attention`` on the card against its plain
-   PyTorch version at every shape of the main path (B 256, H 2, hd 64) and
-   at edge shapes, in f32 (2e-5 absolute) and bf16 (5e-2 absolute), with
-   the kernel's time, its bound, the plain version's time and, as a
-   yardstick only, ``scaled_dot_product_attention`` on the same inputs;
-3. golden decode: the pinned tests/golden_decode.json trajectories, in f32
-   with the kernel on, from the weights in tests/fixtures/;
+   versions, and the time to build both CUDA kernels from
+   vln_magic_tpu_torch/csrc/ with nvcc for sm_90a (one nvcc per source,
+   started together);
+2. packed kernel vs plain: ``packed_attention`` on the card against its
+   plain PyTorch version at every shape of the main path (B 256, H 2,
+   hd 64) and at edge shapes, in f32 (2e-5 absolute) and bf16 (5e-2
+   absolute), with the kernel's time, its bound, the plain version's time
+   and, as a yardstick only, ``scaled_dot_product_attention`` on the same
+   inputs;
+3. golden decodes: the pinned tests/golden_decode.json and
+   tests/golden_decode_parity.json trajectories, in f32 with the kernel
+   on, from the weights in tests/fixtures/; and the same model streamed
+   over 4 lanes, equal per episode to its wave decode;
 4. main path: ``Navigator.evaluate`` on 256 items at MAGIC-S full width
    (hidden 128, 2 heads, 6/2/3 layers, CLIP-768 features, 200-token
    instructions, gmap 128, T 15, 3 scans x 320 nodes), bf16, random
-   weights from a seed; the kernel must launch 216 times per wave.
+   weights from a seed; the kernel must launch 216 times per wave;
+5. streaming: the same navigator streams 1,024 items over its 256 lanes;
+   ``packed_attention`` must launch 6 times per language batch and 14 per
+   step, and the share of episodes equal to the wave decode is reported;
+6. parity: one wave of 256 items with observed-graph parity on;
+7. fused kernel vs plain: ``fused_attention`` against its plain version at
+   the MAGIC-S and MAGIC teacher head layouts at the six path shapes and at
+   edge shapes, in f32 and bf16, with its time, bound and plain time.  Out
+   is held to the plain version on the same inputs (2e-5 f32, 5e-2 bf16);
+   both outputs are also held to the kernel's own arithmetic, the plain
+   version on the f32 upcast: the map to 2e-5, out within one bf16
+   rounding of P and one of out (``attention.fused_attention_error``).
+   Then its entry point once at each MAGIC-S shape, launches counted.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,7 +65,10 @@ PATH_SHAPES = [("language", 200, 200, False, 6),
                ("local_cross", 52, 200, False, 15 * 3),
                ("local_self", 52, 52, False, 15 * 3)]
 LAUNCHES_PER_WAVE = sum(s[4] for s in PATH_SHAPES)          # 216
+LAUNCHES_PER_STEP = (LAUNCHES_PER_WAVE - 6) // 15            # 14
 MAIN_BATCH, MAIN_T = 256, 15
+STREAM_ITEMS = 4 * MAIN_BATCH
+TEACHER = (16, 12)          # MAGIC teacher: B 16 (bench.py's training), H 12
 
 
 def emit(obj):
@@ -109,14 +129,20 @@ def make_inputs(b, h, lq, lk, hd, dtype, sprel, seed, masked_row=False):
 def phase_card_and_build(card):
     from vln_magic_tpu_torch.ops import attention
 
+    def build_one(name):
+        t0 = time.perf_counter()
+        attention.build((name,), verbose=True)
+        return name, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    attention.build(verbose=True)
+    with ThreadPoolExecutor(len(attention.KERNELS)) as pool:
+        each = dict(pool.map(build_one, attention.KERNELS))
     build_s = time.perf_counter() - t0
     print(card, flush=True)
     emit({"phase": "card_and_build", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": build_s})
+          "kernel_build_s": build_s, "kernel_build_s_each": each})
 
 
 def phase_kernel_vs_plain(card):
@@ -193,7 +219,7 @@ def phase_kernel_vs_plain(card):
     return summary
 
 
-def golden_config():
+def golden_config(parity=False, lanes=8):
     from vln_magic_tpu_torch.config import (EnvConfig, MagicConfig,
                                             ModelConfig, TrainConfig)
 
@@ -203,11 +229,14 @@ def golden_config():
                           num_pano_layers=1, num_x_layers=2,
                           image_feat_size=24, max_position_embeddings=64,
                           use_pallas_attention=True),
-        env=EnvConfig(max_action_len=8, max_gmap_len=24, max_instr_len=48),
-        train=TrainConfig(batch_size=8, compute_dtype="float32"))
+        env=EnvConfig(max_action_len=8, max_gmap_len=24, max_instr_len=48,
+                      observed_graph_parity=parity),
+        train=TrainConfig(batch_size=lanes, compute_dtype="float32"))
 
 
 def phase_golden(card):
+    """Both pinned golden decodes on the card, then the golden model
+    streamed over 4 lanes against its own wave decode."""
     from vln_magic_tpu_torch.agent.navigator import Navigator
     from vln_magic_tpu_torch.env import make_synthetic_world
     from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
@@ -217,26 +246,48 @@ def phase_golden(card):
                                  seed=777)
     flat = dict(np.load(os.path.join(ROOT, "tests", "fixtures",
                                      "golden_params_777.npz")))
-    nav = Navigator(golden_config(), world, params=flat, device="cuda")
     items = make_synthetic_instructions(world, 8, np.random.default_rng(777),
                                         vocab_size=400, min_path=3,
                                         max_path=6)
-    before = packed_attention.launches
-    (_, _), preds = nav.evaluate(items, batch_size=8)
-    got = [p["trajectory_idx"] for p in preds]
-    with open(os.path.join(ROOT, "tests", "golden_decode.json")) as f:
-        want = json.load(f)
-    for ep, (g, w) in enumerate(zip(got, want)):
-        if g != w:
-            step = next(i for i in range(max(len(g), len(w)))
-                        if i >= len(g) or i >= len(w) or g[i] != w[i])
-            raise AssertionError(f"golden decode differs at episode {ep}, "
-                                 f"step {step}: {g} vs {w}")
-    if len(got) != len(want):
-        raise AssertionError("golden decode episode count differs")
-    emit({"phase": "golden_decode", "episodes": len(got), "match": True,
-          "kernel_launches": packed_attention.launches - before,
-          "card": card})
+    for golden, parity in (("golden_decode.json", False),
+                           ("golden_decode_parity.json", True)):
+        nav = Navigator(golden_config(parity), world, params=flat,
+                        device="cuda")
+        packed_attention.launches = 0
+        (_, _), preds = nav.evaluate(items, batch_size=8)
+        got = [p["trajectory_idx"] for p in preds]
+        with open(os.path.join(ROOT, "tests", golden)) as f:
+            want = json.load(f)
+        for ep, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                step = next(i for i in range(max(len(g), len(w)))
+                            if i >= len(g) or i >= len(w) or g[i] != w[i])
+                raise AssertionError(f"{golden} differs at episode {ep}, "
+                                     f"step {step}: {g} vs {w}")
+        if len(got) != len(want):
+            raise AssertionError(f"{golden}: episode count differs")
+        emit({"phase": "golden_decode", "golden": golden, "parity": parity,
+              "episodes": len(got), "match": True,
+              "kernel_launches": packed_attention.launches, "card": card})
+
+    # streaming equals waves: 4 lanes, 10 items of one instruction length
+    nav = Navigator(golden_config(lanes=4), world, params=flat,
+                    device="cuda")
+    items = make_synthetic_instructions(world, 10, np.random.default_rng(1),
+                                        vocab_size=400, min_path=3,
+                                        max_path=6)
+    rng = np.random.default_rng(2)
+    for it in items:
+        it["instr_encoding"] = rng.integers(4, 400, 40).astype(np.int32)
+    (_, _), waves = nav.evaluate(items, stream=False)
+    (avg, _), streamed = nav.evaluate(items, stream=True)
+    for ep, (w, st) in enumerate(zip(waves, streamed)):
+        if w["trajectory_idx"] != st["trajectory_idx"]:
+            raise AssertionError(f"streamed episode {ep} differs from its "
+                                 f"wave decode: {st} vs {w}")
+    emit({"phase": "golden_stream_equals_waves", "lanes": 4,
+          "episodes": len(items), "match": True,
+          "scan_steps": avg["scan_steps"], "card": card})
 
 
 def build_main_path():
@@ -268,25 +319,9 @@ def build_main_path():
     return nav, items, time.perf_counter() - t0
 
 
-def phase_main_path(card):
-    from vln_magic_tpu_torch.ops.attention import packed_attention
-
-    batch, t_steps = MAIN_BATCH, MAIN_T
-    nav, items, setup_s = build_main_path()
-    world = nav.world
-    nav.evaluate(items)                 # warm-up: cuBLAS handles, caches
-    torch.cuda.synchronize()
-    packed_attention.launches = 0
-    t0 = time.perf_counter()
-    (avg, _), preds = nav.evaluate(items)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = packed_attention.launches
-
-    waves = math.ceil(len(items) / batch)
-    if launches != LAUNCHES_PER_WAVE * waves:
-        raise AssertionError(f"packed_attention launched {launches} times, "
-                             f"want {LAUNCHES_PER_WAVE} x {waves}")
+def check_decode(world, items, avg, preds):
+    """Finite metrics, one prediction per item, and trajectories that walk
+    graph edges from each item's start."""
     if len(preds) != len(items) or not all(
             math.isfinite(v) for v in avg.values()):
         raise AssertionError(f"bad evaluation output: {avg}")
@@ -296,13 +331,223 @@ def phase_main_path(card):
         if flat[0] != it["path_idx"][0] or not all(
                 g.adjacency[a, b] for a, b in zip(flat[:-1], flat[1:])):
             raise AssertionError(f"trajectory off the graph: {flat}")
+
+
+def timed_evaluate(nav, items, **kw):
+    """``nav.evaluate`` with the launch counts set to 0 just before it and
+    read just after: (avg, preds, wall seconds, launches)."""
+    from vln_magic_tpu_torch.ops.attention import (fused_attention,
+                                                   packed_attention)
+
+    torch.cuda.synchronize()
+    packed_attention.launches = fused_attention.launches = 0
+    t0 = time.perf_counter()
+    (avg, _), preds = nav.evaluate(items, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return avg, preds, wall, {"packed_attention": packed_attention.launches,
+                              "fused_attention": fused_attention.launches}
+
+
+def phase_main_path(card):
+    batch, t_steps = MAIN_BATCH, MAIN_T
+    nav, items, setup_s = build_main_path()
+    nav.evaluate(items)                 # warm-up: cuBLAS handles, caches
+    avg, preds, wall, launches = timed_evaluate(nav, items)
+    waves = math.ceil(len(items) / batch)
+    if launches["packed_attention"] != LAUNCHES_PER_WAVE * waves:
+        raise AssertionError(f"packed_attention launched {launches} times, "
+                             f"want {LAUNCHES_PER_WAVE} x {waves}")
+    check_decode(nav.world, items, avg, preds)
     emit({"phase": "main_path", "batch": batch, "waves": waves,
           "T": t_steps, "setup_s": setup_s, "wall_s": wall,
           "semantic_steps_per_s": avg["semantic_steps"] / wall,
           "padded_steps_per_s": batch * waves * t_steps / wall,
-          "metrics": avg, "kernels": {"packed_attention": launches},
+          "metrics": avg, "kernels": launches, "card": card})
+    return nav, items, launches["packed_attention"]
+
+
+def phase_streaming(card, nav):
+    """1,024 items over the main path's 256 lanes, streamed; then the same
+    items in waves, for the share of equal decodes (bf16: reported, not
+    gated) and the walls side by side."""
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    world, lanes = nav.world, MAIN_BATCH
+    rng = np.random.default_rng(1)
+    items = make_synthetic_instructions(world, STREAM_ITEMS, rng, min_path=4,
+                                        max_path=7)
+    for it in items:
+        it["instr_encoding"] = rng.integers(4, 1000, 200).astype(np.int32)
+    avg, preds, wall, launches = timed_evaluate(nav, items)
+    chunk = nav.stream_eval(lanes).chunk
+    chunks = int(avg["scan_steps"]) // chunk
+    want = (6 * (STREAM_ITEMS // lanes)
+            + LAUNCHES_PER_STEP * int(avg["scan_steps"]))
+    if launches["packed_attention"] != want:
+        raise AssertionError(f"streaming launched packed_attention "
+                             f"{launches['packed_attention']} times, want "
+                             f"{want} ({chunks} chunks of {chunk} steps)")
+    check_decode(world, items, avg, preds)
+    w_avg, w_preds, w_wall, _ = timed_evaluate(nav, items, stream=False)
+    same = sum(a["trajectory_idx"] == b["trajectory_idx"]
+               for a, b in zip(preds, w_preds)) / len(items)
+    emit({"phase": "streaming", "items": STREAM_ITEMS, "lanes": lanes,
+          "chunk_steps": chunk, "chunks": chunks, "wall_s": wall,
+          "semantic_steps_per_s": avg["semantic_steps"] / wall,
+          "padded_steps_per_s": lanes * avg["scan_steps"] / wall,
+          "waves_wall_s": w_wall,
+          "waves_semantic_steps_per_s": w_avg["semantic_steps"] / w_wall,
+          "share_equal_to_waves": same, "metrics": avg,
+          "kernels": launches, "card": card})
+    return launches["packed_attention"]
+
+
+def phase_parity(card, wave_nav, items):
+    """One full-width wave with observed-graph parity on: the main path's
+    world, items and weights (seed 0)."""
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+
+    cfg = wave_nav.cfg
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+        cfg.env, observed_graph_parity=True))
+    nav = Navigator(cfg, wave_nav.world, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    avg, preds, wall, launches = timed_evaluate(nav, items)
+    if launches["packed_attention"] != LAUNCHES_PER_WAVE:
+        raise AssertionError(f"parity launched packed_attention "
+                             f"{launches['packed_attention']} times, want "
+                             f"{LAUNCHES_PER_WAVE}")
+    check_decode(nav.world, items, avg, preds)
+    emit({"phase": "parity", "batch": MAIN_BATCH, "T": MAIN_T,
+          "wall_s": wall,
+          "semantic_steps_per_s": avg["semantic_steps"] / wall,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "metrics": avg, "kernels": launches, "card": card})
+    return launches["packed_attention"]
+
+
+def fused_bound(b, h, lq, lk, hd, dtype, full_bias):
+    """The least time of one ``fused_attention`` call, in ms, and its two
+    parts: q, k, v and out at the inputs' width, the f32 bias as read
+    ([B, 1, 1, Lk] or [B, H, Lq, Lk]) and the f32 map [B, Lq, Lk], over the
+    memory rate; 4*B*H*Lq*Lk*hd FLOPs over the inputs' peak rate."""
+    el = torch.finfo(dtype).bits // 8
+    nbytes = (el * b * h * hd * (2 * lq + 2 * lk)
+              + 4 * (b * h * lq * lk if full_bias else b * lk)
+              + 4 * b * lq * lk)
+    flops = 4 * b * h * lq * lk * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
+
+
+def fused_inputs(b, h, lq, lk, hd, dtype, full_bias, seed, masked_row=False):
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    t = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    q, k, v = (t(b, h, l, hd).to(dtype) for l in (lq, lk, lk))
+    bias = t(b, h, lq, lk) if full_bias else t(b, 1, 1, lk)
+    bias[..., -max(1, lk // 8):] = -1e9            # padded keys
+    if masked_row:
+        bias[1 % b] = -1e9                         # an ended episode
+    return q, k, v, bias
+
+
+def phase_fused(card):
+    """``fused_attention`` against its plain version, then its entry point
+    once at each MAGIC-S path shape with the launches counted.  No single
+    PyTorch call computes both outputs (``scaled_dot_product_attention``
+    returns no probability map), so there is no library time."""
+    from vln_magic_tpu_torch.ops import attention
+
+    fa, ref = attention.fused_attention, attention.fused_attention_reference
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    cases = [(f"magic_s_{name}", MAIN_BATCH, 2, lq, lk, 64, sp, False)
+             for name, lq, lk, sp, _ in PATH_SHAPES]
+    cases += [(f"teacher_{name}", TEACHER[0], TEACHER[1], lq, lk, 64, sp,
+               False) for name, lq, lk, sp, _ in PATH_SHAPES]
+    cases += [("odd_batch", 3, 2, 37, 45, 64, True, False),
+              ("hd16", 4, 4, 8, 8, 16, False, False),
+              ("hd32_rxr_lk250", 2, 3, 20, 250, 32, False, False),
+              ("fully_masked_row", 4, 2, 16, 24, 64, True, True),
+              ("hd128", 2, 1, 5, 33, 128, True, True)]
+    summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0, "max_abs_err": 0.0}
+    for seed, (name, b, h, lq, lk, hd, full, masked) in enumerate(cases):
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, bias = fused_inputs(b, h, lq, lk, hd, dtype, full,
+                                         seed, masked)
+            want = ref(q, k, v, bias)
+            attention.fused_attention_reference = plain_must_not_run
+            try:
+                out, probs = fa(q, k, v, bias)
+                torch.cuda.synchronize()
+                ms = time_ms(lambda: fa(q, k, v, bias))
+            finally:
+                attention.fused_attention_reference = ref
+            # against the plain version on the same inputs (in bf16 it
+            # rounds the scores, which the kernel does not) ...
+            err = (out.float() - want[0].float()).abs().max().item()
+            plain_map_err = (probs - want[1]).abs().max().item()
+            # ... and against the kernel's own arithmetic: the plain version
+            # on the f32 upcast, the map to 2e-5, out within one rounding of
+            # P and one of out (attention.fused_attention_error)
+            exact_err, map_err, used = attention.fused_attention_error(
+                q, k, v, bias, out, probs, atol=F32_TOL)
+            if not (torch.isfinite(out).all() and torch.isfinite(probs).all()
+                    and err <= tol and map_err <= F32_TOL and used <= 1.0):
+                raise AssertionError(
+                    f"fused {name} {dname}: max abs err {err} (tol {tol}); "
+                    f"against f32 arithmetic: map {map_err} (tol {F32_TOL}), "
+                    f"out {exact_err}, {used:.3f} of its limit")
+            plain_ms = time_ms(lambda: ref(q, k, v, bias))
+            bound_ms, bytes_ms, ops_ms = fused_bound(b, h, lq, lk, hd, dtype,
+                                                     full)
+            emit({"phase": "fused_vs_plain", "shape": name, "B": b, "H": h,
+                  "Lq": lq, "Lk": lk, "hd": hd, "full_bias": full,
+                  "dtype": dname, "max_abs_err": err, "tol": tol,
+                  "plain_map_max_abs_err": plain_map_err,
+                  "exact_max_abs_err": exact_err,
+                  "exact_limit_used": used,
+                  "map_max_abs_err": map_err, "map_tol": F32_TOL,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                  "library_ms": None, "card": card})
+            if dtype == torch.bfloat16 and name.startswith("magic_s_"):
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound_ms),
+                                 ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                    summary[key] += val
+                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+
+    # the entry point's own path: one call at each MAGIC-S shape, bf16
+    inputs = [fused_inputs(MAIN_BATCH, 2, lq, lk, 64, torch.bfloat16, sp, i)
+              for i, (_, lq, lk, sp, _) in enumerate(PATH_SHAPES)]
+    torch.cuda.synchronize()
+    attention.packed_attention.launches = fa.launches = 0
+    outs = [fa(*x) for x in inputs]
+    torch.cuda.synchronize()
+    launches = fa.launches
+    if launches != len(PATH_SHAPES):
+        raise AssertionError(f"fused_attention launched {launches} times, "
+                             f"want {len(PATH_SHAPES)}")
+    for (q, _, _, _), (out, probs) in zip(inputs, outs):
+        rows = probs.sum(-1)
+        if (out.shape != q.shape or not torch.isfinite(out).all()
+                or (rows - 1).abs().max().item() > 1e-5):
+            raise AssertionError("fused_attention entry point: bad output")
+    emit({"phase": "fused_entry_point", "calls": len(PATH_SHAPES),
+          "kernels": {"fused_attention": launches,
+                      "packed_attention": attention.packed_attention.launches},
           "card": card})
-    return launches
+    summary["launches"] = launches
+    return summary
 
 
 def main():
@@ -314,20 +559,35 @@ def main():
 
     card = card_line()
     phase_card_and_build(card)
-    summary = phase_kernel_vs_plain(card)
+    packed = phase_kernel_vs_plain(card)
     phase_golden(card)
-    launches = phase_main_path(card)
+    nav, items, wave_launches = phase_main_path(card)
+    stream_launches = phase_streaming(card, nav)
+    parity_launches = phase_parity(card, nav, items)
+    fused = phase_fused(card)
+    by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     emit({"kernels": [{
         "name": "packed_attention", "route": "cuda",
         "source": "vln_magic_tpu_torch/csrc/packed_attention.cu",
         "replaces": "vln_magic_tpu/ops/attention.py:216",
-        "launches": launches, "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"], "plain_ms": summary["plain_ms"],
-        "bound_ms": summary["bound_ms"],
-        "bound_by": ("bytes" if summary["bytes_ms"] >= summary["ops_ms"]
-                     else "operations"),
-        "library_ms": summary["library_ms"],
-        "per": "one wave of the main path (216 launches, bf16)"}]})
+        "launches": wave_launches, "max_abs_err": packed["max_abs_err"],
+        "ms": packed["ms"], "plain_ms": packed["plain_ms"],
+        "bound_ms": packed["bound_ms"], "bound_by": by(packed),
+        "library_ms": packed["library_ms"],
+        "launches_by_path": {"wave": wave_launches,
+                             "stream": stream_launches,
+                             "parity": parity_launches},
+        "per": "one wave of the main path (216 launches, bf16)"}, {
+        "name": "fused_attention", "route": "cuda",
+        "source": "vln_magic_tpu_torch/csrc/fused_attention.cu",
+        "replaces": "vln_magic_tpu/ops/attention.py:272",
+        "launches": fused["launches"], "max_abs_err": fused["max_abs_err"],
+        "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"], "bound_by": by(fused),
+        "library_ms": None,
+        "library_note": "no single PyTorch call returns the probability map",
+        "per": "its entry point once at each of the six MAGIC-S path "
+               "shapes (6 launches, bf16); no model path calls it"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

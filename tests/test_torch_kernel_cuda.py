@@ -1,5 +1,5 @@
-"""The CUDA packed-attention kernel against its plain PyTorch version, on the
-card.
+"""The CUDA kernels (packed and fused attention) against their plain
+PyTorch versions, and the decodes that run them, on the card.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  They import no JAX, so they also run on a machine without it:
@@ -7,7 +7,10 @@ they skip.  They import no JAX, so they also run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
 Tolerances: 2e-5 absolute in f32 (sums in another order) and 5e-2 in bf16,
-as tests/test_ops.py uses for the TPU kernel.
+as tests/test_ops.py uses for the TPU kernels.  The fused kernel is also
+held to its own arithmetic, the plain version on the f32 upcast of the same
+inputs: the map within 2e-5 in both dtypes, out within one bf16 rounding of
+P and one of out (``attention.fused_attention_error``).
 """
 
 import json
@@ -88,13 +91,81 @@ def test_kernel_rejects_an_unsupported_head_dim(cuda, no_plain):
         attention.packed_attention(q, k, v, mask, None, num_heads=2)
 
 
-def test_golden_decode_with_the_kernel(cuda):
-    """tests/test_golden.py's decode in f32 with the kernel on."""
+def _fused_inputs(dev, b, h, lq, lk, hd, full_bias, dtype, seed,
+                  masked_row=False):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    q, k, v = (t(b, h, l, hd).to(dtype) for l in (lq, lk, lk))
+    bias = t(b, h, lq, lk) if full_bias else t(b, 1, 1, lk)
+    bias[..., -max(1, lk // 8):] = -1e9
+    if masked_row:
+        bias[b - 1] = -1e9
+    return q, k, v, bias
+
+
+# (B, H, Lq, Lk, hd, full bias, fully masked row): MAGIC-S and teacher head
+# layouts at a small batch, an odd batch, hd 16/32/128, RxR's 250 keys
+FUSED_CASES = [(4, 2, 128, 128, 64, True, False),
+               (4, 2, 52, 200, 64, False, False),
+               (2, 12, 200, 200, 64, False, False),
+               (3, 2, 37, 45, 64, True, True),
+               (3, 4, 8, 8, 16, False, False),
+               (2, 3, 20, 250, 32, False, True),
+               (2, 1, 5, 33, 128, True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,lq,lk,hd,full_bias,masked", FUSED_CASES)
+def test_fused_kernel_matches_plain(cuda, monkeypatch, dtype, b, h, lq, lk,
+                                    hd, full_bias, masked):
+    q, k, v, bias = _fused_inputs(cuda, b, h, lq, lk, hd, full_bias, dtype,
+                                  seed=lq + lk, masked_row=masked)
+    plain = attention.fused_attention_reference
+    want = plain(q, k, v, bias)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(attention, "fused_attention_reference", refuse)
+    before = attention.fused_attention.launches
+    out, probs = attention.fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert probs.dtype == torch.float32 and probs.shape == (b, lq, lk)
+    assert torch.isfinite(out).all() and torch.isfinite(probs).all()
+    err = (out.float() - want[0].float()).abs().max().item()
+    assert err <= TOLS[dtype], err
+    monkeypatch.setattr(attention, "fused_attention_reference", plain)
+    out_err, map_err, used = attention.fused_attention_error(
+        q, k, v, bias, out, probs, atol=TOLS[torch.float32])
+    assert map_err <= TOLS[torch.float32], map_err
+    assert used <= 1.0, (out_err, used)
+
+
+def test_fused_kernel_refuses_inputs_that_require_grad(cuda):
+    q, k, v, bias = _fused_inputs(cuda, 2, 2, 4, 8, 32, False, torch.float32, 0)
+    q.requires_grad_(True)
+    before = attention.fused_attention.launches
+    with pytest.raises(RuntimeError, match="grad"):
+        attention.fused_attention(q, k, v, bias)
+    assert attention.fused_attention.launches == before
+
+
+@pytest.mark.parametrize("hd,lk", [(24, 8), (32, 257)])
+def test_fused_kernel_rejects_unsupported_shapes(cuda, hd, lk):
+    q, k, v, bias = _fused_inputs(cuda, 2, 2, 4, lk, hd, False,
+                                  torch.float32, 0)
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, k, v, bias)
+
+
+def _golden_nav(cuda, parity=False, lanes=8):
     from vln_magic_tpu_torch.agent.navigator import Navigator
     from vln_magic_tpu_torch.config import (EnvConfig, MagicConfig,
                                             ModelConfig, TrainConfig)
     from vln_magic_tpu_torch.env import make_synthetic_world
-    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
 
     cfg = MagicConfig(
         model=ModelConfig(vocab_size=400, hidden_size=64,
@@ -102,18 +173,46 @@ def test_golden_decode_with_the_kernel(cuda):
                           num_pano_layers=1, num_x_layers=2,
                           image_feat_size=24, max_position_embeddings=64,
                           use_pallas_attention=True),
-        env=EnvConfig(max_action_len=8, max_gmap_len=24, max_instr_len=48),
-        train=TrainConfig(batch_size=8))
+        env=EnvConfig(max_action_len=8, max_gmap_len=24, max_instr_len=48,
+                      observed_graph_parity=parity),
+        train=TrainConfig(batch_size=lanes))
     world = make_synthetic_world(num_scans=2, nodes_per_scan=20, feat_dim=24,
                                  seed=777)
     params = dict(np.load(os.path.join(HERE, "fixtures",
                                        "golden_params_777.npz")))
-    nav = Navigator(cfg, world, params=params, device=cuda)
-    items = make_synthetic_instructions(world, 8, np.random.default_rng(777),
-                                        vocab_size=400, min_path=3,
-                                        max_path=6)
+    return Navigator(cfg, world, params=params, device=cuda)
+
+
+def _golden_items(world, n=8):
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    return make_synthetic_instructions(world, n, np.random.default_rng(777),
+                                       vocab_size=400, min_path=3,
+                                       max_path=6)
+
+
+@pytest.mark.parametrize("golden,parity", [("golden_decode.json", False),
+                                           ("golden_decode_parity.json",
+                                            True)], ids=["full", "parity"])
+def test_golden_decode_with_the_kernel(cuda, golden, parity):
+    """tests/test_golden.py's decodes in f32 with the kernel on."""
+    nav = _golden_nav(cuda, parity)
     before = attention.packed_attention.launches
-    _, preds = nav.evaluate(items, batch_size=8)
+    _, preds = nav.evaluate(_golden_items(nav.world), batch_size=8)
     assert attention.packed_attention.launches > before
-    with open(os.path.join(HERE, "golden_decode.json")) as f:
+    with open(os.path.join(HERE, golden)) as f:
         assert [p["trajectory_idx"] for p in preds] == json.load(f)
+
+
+def test_stream_equals_waves_with_the_kernel(cuda):
+    """The golden model over 4 lanes and 10 items of one instruction
+    length: the streamed decode equals the wave decode per episode."""
+    nav = _golden_nav(cuda, lanes=4)
+    items = _golden_items(nav.world, 10)
+    rng = np.random.default_rng(1)
+    for it in items:
+        it["instr_encoding"] = rng.integers(4, 400, 40).astype(np.int32)
+    _, waves = nav.evaluate(items, stream=False)
+    _, streamed = nav.evaluate(items, stream=True)
+    assert [p["trajectory_idx"] for p in streamed] == \
+        [p["trajectory_idx"] for p in waves]

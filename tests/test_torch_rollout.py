@@ -273,15 +273,19 @@ def test_one_wave_calls_packed_attention_216_times_at_full_depth(monkeypatch):
 
 
 def test_unported_paths_raise(world, golden_params):
+    """Parity mode and streaming are ported and run (tests/test_torch_parity.py
+    and tests/test_torch_streaming.py pin them); sampled feedback and MC
+    ensembles still raise."""
     cfg = golden_cfg(tcfg)
     parity = dataclasses.replace(
         cfg, env=dataclasses.replace(cfg.env, observed_graph_parity=True))
-    with pytest.raises(NotImplementedError, match="observed_graph_parity"):
-        Navigator(parity, world, params=golden_params, device="cpu")
-    nav = Navigator(cfg, world, params=golden_params, device="cpu")
     items = golden_items(world)
-    with pytest.raises(NotImplementedError, match="stream"):
-        nav.evaluate(items, stream=True)
+    (avg, _), preds = Navigator(parity, world, params=golden_params,
+                                device="cpu").evaluate(items)
+    assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
+    nav = Navigator(cfg, world, params=golden_params, device="cpu")
+    (avg, _), preds = nav.evaluate(items, batch_size=4, stream=True)
+    assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
     with pytest.raises(NotImplementedError, match="sample"):
         nav.evaluate(items, feedback="sample")
     with pytest.raises(NotImplementedError, match="ensemble"):

@@ -1,5 +1,6 @@
 """Greedy-decode navigation agent (port of
-``vln_magic_tpu/agent/navigator.py``, wave path)."""
+``vln_magic_tpu/agent/navigator.py``): waves, observed-graph parity and
+streaming evaluation."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from ..env.world import World
 from ..models.vlnbert import DualScaleVLNBert
 from ..utils.device import resolve_device
 from ..utils.weights import init_params, load_flax_params
-from .evaluator import Evaluator, build_trajectories
+from .evaluator import (Evaluator, build_trajectories,
+                        build_trajectories_observed)
 from .rollout import Rollout, Tables, init_episodes
 
 
@@ -31,7 +33,7 @@ def pad_instructions(items, max_len: int, pad_id: int = 1):
 
 
 def episodes_from_items(tables: Tables, items, hidden_size: int,
-                        max_gt_len: int = 24):
+                        max_gt_len: int = 24, observed_parity: bool = False):
     b = len(items)
     scan = np.array([it["scan_idx"] for it in items], np.int64)
     start = np.array([it["path_idx"][0] for it in items], np.int64)
@@ -43,7 +45,7 @@ def episodes_from_items(tables: Tables, items, hidden_size: int,
         gt_path[i, : len(p)] = p
         gt_len[i] = len(p)
     return init_episodes(tables, scan, start, heading, gt_path, gt_len,
-                         hidden_size)
+                         hidden_size, observed_parity=observed_parity)
 
 
 class Navigator:
@@ -67,11 +69,13 @@ class Navigator:
         else:
             load_flax_params(self.model, params)
         self.rollout = Rollout(self.tables, cfg.env, self.model)
+        self._streams = {}
 
     def run_items(self, items, feedback="argmax", ensemble_n=1):
         txt_ids, txt_masks = pad_instructions(items, self.cfg.env.max_instr_len)
-        state = episodes_from_items(self.tables, items,
-                                    self.cfg.model.hidden_size)
+        state = episodes_from_items(
+            self.tables, items, self.cfg.model.hidden_size,
+            observed_parity=self.cfg.env.observed_graph_parity)
         aux = self.rollout.run(
             state, torch.from_numpy(txt_ids).to(self.device),
             torch.from_numpy(txt_masks).to(self.device), feedback,
@@ -80,14 +84,26 @@ class Navigator:
 
     def evaluate(self, items, feedback="argmax", batch_size=None,
                  ensemble_n=1, stream=None):
-        """Greedy decode + metrics over an item list, in waves of
-        ``batch_size`` (the tail wave is padded with copies of its last
-        item).  Streaming is not ported: ``stream=True`` raises."""
-        if stream:
-            raise NotImplementedError(
-                "streaming evaluation is not ported to vln_magic_tpu_torch "
-                "yet (see ROADMAP.md)")
+        """Greedy decode + metrics over an item list.
+
+        ``stream``: continuous-batching decode (``agent/streaming.py``):
+        ended lanes refill from the item queue.  ``None`` turns it on when
+        eligible (argmax, ``ensemble_n == 1``, not parity) and there are
+        more items than ``batch_size``, as the JAX package does;
+        ``stream=True`` on an ineligible call raises ``ValueError``.
+        Otherwise the items run in waves of ``batch_size``, the tail wave
+        padded with copies of its last item."""
         bs = batch_size or self.cfg.train.batch_size
+        parity = self.cfg.env.observed_graph_parity
+        eligible = feedback == "argmax" and ensemble_n == 1 and not parity
+        if stream is None:
+            stream = eligible and len(items) > bs
+        if stream:
+            if not eligible:
+                raise ValueError("stream=True needs argmax feedback, "
+                                 "ensemble_n == 1 and the full-table "
+                                 "(non-parity) path")
+            return self._evaluate_stream(items, bs)
         preds = []
         gmap_overflow = semantic_steps = 0
         for i in range(0, len(items), bs):
@@ -98,13 +114,41 @@ class Navigator:
             _, aux = self.run_items(chunk, feedback, ensemble_n=ensemble_n)
             gmap_overflow += int(aux["gmap_overflow"])
             semantic_steps += int(aux["semantic_steps"])
-            preds.extend(build_trajectories(
-                self.world, chunk, aux["actions"].cpu().numpy(),
-                aux["stop_node"].cpu().numpy(),
-                aux["final_cur"].cpu().numpy())[:n_real])
+            host = {k: v.cpu().numpy() for k, v in aux.items()}
+            if parity:
+                chunk_preds = build_trajectories_observed(
+                    self.world, chunk, host["actions"], host["traj_nodes"],
+                    host["traj_len"], host["stop_node"], host["final_cur"])
+            else:
+                chunk_preds = build_trajectories(
+                    self.world, chunk, host["actions"], host["stop_node"],
+                    host["final_cur"])
+            preds.extend(chunk_preds[:n_real])
         avg, per_item = Evaluator(self.world, items).eval_metrics(preds)
         # episodes whose observed-node count outgrew max_gmap_len (tokens
-        # truncated), and the live episode-steps decoded (padding included)
+        # truncated), the live episode-steps decoded (padding included) and
+        # the steps the lanes ran
         avg["gmap_overflow"] = float(gmap_overflow)
         avg["semantic_steps"] = float(semantic_steps)
+        avg["scan_steps"] = float(-(-len(items) // bs)
+                                  * self.cfg.env.max_action_len)
+        return (avg, per_item), preds
+
+    def stream_eval(self, batch_size=None):
+        """The continuous-batching decoder, cached per lane width."""
+        from .streaming import StreamEval
+
+        bs = batch_size or self.cfg.train.batch_size
+        if bs not in self._streams:
+            self._streams[bs] = StreamEval(self.rollout, self.cfg.env, bs)
+        return self._streams[bs]
+
+    def _evaluate_stream(self, items, bs):
+        out = self.stream_eval(bs).run(items, self.cfg.env.max_instr_len)
+        preds = build_trajectories(self.world, items, out["actions"].T,
+                                   out["stop_node"], out["final_cur"])
+        avg, per_item = Evaluator(self.world, items).eval_metrics(preds)
+        avg["gmap_overflow"] = float(out["overflow"].sum())
+        avg["semantic_steps"] = float(out["semantic_steps"])
+        avg["scan_steps"] = float(out["scan_steps"])
         return (avg, per_item), preds

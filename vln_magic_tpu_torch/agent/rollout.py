@@ -1,11 +1,19 @@
 """Batched greedy navigation rollout over padded world tables.
 
-Port of ``vln_magic_tpu/agent/rollout.py`` for greedy evaluation on the
-full-table path: the episode state (current node, orientation, and the
-topological map: visited/observed sets, observation order, averaged node
-embeddings, stop scores) is a set of padded tensors, and the time loop runs
-all ``max_action_len`` steps, masking episodes that have ended, as the
-reference's ``lax.scan`` does.
+Port of ``vln_magic_tpu/agent/rollout.py`` for greedy evaluation: the
+episode state (current node, orientation, and the topological map:
+visited/observed sets, observation order, averaged node embeddings, stop
+scores) is a set of padded tensors, and the time loop runs all
+``max_action_len`` steps, masking episodes that have ended, as the
+reference's ``lax.scan`` does.  One step is ``Rollout.step``, which takes
+per-lane step clocks, so the wave loop (``run``) and the streaming decoder
+(``agent/streaming.py``) share it.
+
+Two graph-information modes, as in the reference: the default reads
+gmap distances and paths from the full-graph tables; with
+``EnvConfig.observed_graph_parity`` they come from the incrementally observed
+subgraph (``relax_observed``: visited-pivot all-pairs distances, walks through
+visited nodes only), and the expanded trajectory is recorded on the device.
 
 Token layouts match the reference:
   gmap tokens: [stop], [mem], visited (observation order), frontier (obs order)
@@ -35,6 +43,8 @@ from . import geometry as geo
 BIG = 1_000_000       # obs-order offset separating frontier from visited
 UNOBS = 2_000_000     # obs-order value for unobserved nodes
 NEG_INF = -1e9
+INF_DIST = 1e9        # observed-graph distance of an unreached pair
+MAX_TRAJ = 96         # expanded-trajectory buffer (steps x jump hops)
 WALK_HOPS = 32        # next-hop walk bound (>= any scan diameter)
 
 
@@ -94,6 +104,12 @@ class EpisodeBatch:
     embed_sum: torch.Tensor     # [B, N+1, D] f32
     embed_cnt: torch.Tensor     # [B, N+1] f32
     mem: torch.Tensor           # [B, D] f32 ([MEM] recurrence, cls_embeds)
+    traj_nodes: torch.Tensor    # [B, MAX_TRAJ+1] i64 expanded trajectory (-1 pad)
+    traj_len: torch.Tensor      # [B] i64
+    # observed-subgraph all-pairs distances / hops (parity mode);
+    # [B, 1, 1] zeros when the mode is off
+    obs_dist: torch.Tensor      # [B, N, N] f32
+    obs_steps: torch.Tensor     # [B, N, N] f32
     ended: torch.Tensor         # [B] bool
 
     @property
@@ -102,21 +118,30 @@ class EpisodeBatch:
 
 
 def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
-                  hidden_size: int) -> EpisodeBatch:
+                  hidden_size: int,
+                  observed_parity: bool = False) -> EpisodeBatch:
     """Agent at gt_path[0] with the item's heading, elevation 0; the start
-    node is visited and it and its candidates are observed."""
+    node is visited and it and its candidates are observed.  Inputs may be
+    numpy arrays or tensors on the tables' device."""
     dev = tables.dist.device
-    i64 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64,
-                                    device=dev)
+    i64 = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)
     scan, start = i64(scan_idx), i64(start)
     gt_path, gt_len = i64(gt_path), i64(gt_len)
     b = scan.shape[0]
-    n1 = tables.num_nodes + 1
+    n = tables.num_nodes
+    n1 = n + 1
     bi = torch.arange(b, device=dev)
-    heading = torch.as_tensor(np.asarray(heading), dtype=torch.float32,
-                              device=dev)
+    heading = torch.as_tensor(heading, dtype=torch.float32, device=dev)
     zeros = lambda *shape, dtype=torch.float32: torch.zeros(
         shape, dtype=dtype, device=dev)
+    if observed_parity:
+        apsp0 = torch.full((n, n), INF_DIST, device=dev).fill_diagonal_(0.0)
+        apsp0 = apsp0.expand(b, n, n)
+    else:
+        apsp0 = zeros(b, 1, 1)
+    traj_nodes = torch.full((b, MAX_TRAJ + 1), -1, dtype=torch.int64,
+                            device=dev)
+    traj_nodes[:, 0] = start
     state = EpisodeBatch(
         scan=scan, cur=start.clone(), heading=heading,
         elevation=zeros(b), start=start,
@@ -127,12 +152,57 @@ def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
         step_ids=zeros(b, n1, dtype=torch.int64),
         stop_scores=torch.full((b, n1), NEG_INF, device=dev),
         embed_sum=zeros(b, n1, hidden_size), embed_cnt=zeros(b, n1),
-        mem=zeros(b, hidden_size), ended=zeros(b, dtype=torch.bool))
+        mem=zeros(b, hidden_size), traj_nodes=traj_nodes,
+        traj_len=torch.ones(b, dtype=torch.int64, device=dev),
+        obs_dist=apsp0, obs_steps=apsp0, ended=zeros(b, dtype=torch.bool))
     # the start node carries step id 1 from the outset and is visited
     state.step_ids[bi, start] = 1
     state.visited[bi, start] = True
+    if observed_parity:
+        relax_observed(state, tables, start,
+                       torch.ones(b, dtype=torch.bool, device=dev))
     _observe(state, tables)
     return state
+
+
+def relax_observed(state: EpisodeBatch, tables: Tables, v, live) -> None:
+    """Observed-subgraph all-pairs update on arrival at ``v`` (the
+    reference GraphMap's FloydGraph; ``vln_magic_tpu/agent/rollout.py:144``).
+
+    (1) add_edge: d(v, c) takes the direct edge weight of each candidate c
+    where it is strictly smaller (a tie keeps the old value); (2) pivot:
+    d(i, j) = min(d(i, j), d(i, v) + d(v, j)), strictly.  Only visited nodes
+    ever pivot, so a distance is the shortest path whose intermediate nodes
+    are all visited.  Rows of ``live`` == False are left as they are."""
+    t = tables
+    b = state.batch_size
+    n = t.num_nodes
+    bi = torch.arange(b, device=v.device)
+    D, S = state.obs_dist, state.obs_steps
+
+    cand = t.cand_ids[state.scan, v]                          # [B, C]
+    valid = t.cand_mask[state.scan, v] & live[:, None] & (cand >= 0)
+    safe = cand.clamp(min=0)
+    w = t.dist[state.scan[:, None], v[:, None], safe]
+    # direct weights onto v's row; amin over candidate slots resolves
+    # duplicate candidates, slot n is a trash column
+    direct = torch.full((b, n + 1), INF_DIST, device=v.device)
+    direct.scatter_reduce_(1, torch.where(valid, safe, n),
+                           torch.where(valid, w, INF_DIST), "amin",
+                           include_self=True)
+    direct = direct[:, :n]
+    row_d, row_s = D[bi, v], S[bi, v]                         # [B, N]
+    use_direct = direct < row_d
+    row_d = torch.where(use_direct, direct, row_d)
+    row_s = torch.where(use_direct, 1.0, row_s)
+    row_d[bi, v] = 0.0                                        # d(v, v) = 0
+    row_s[bi, v] = 0.0
+
+    new_d = row_d[:, :, None] + row_d[:, None, :]
+    better = (new_d < D) & live[:, None, None]
+    state.obs_dist = torch.where(better, new_d, D)
+    state.obs_steps = torch.where(better, row_s[:, :, None] + row_s[:, None, :],
+                                  S)
 
 
 def _observe(state: EpisodeBatch, tables: Tables) -> None:
@@ -169,20 +239,12 @@ def _take(x, idx):
     return x.gather(1, flat).reshape(*idx.shape, x.shape[2])
 
 
-def refuse_unported(env: EnvConfig):
-    if env.observed_graph_parity:
-        raise NotImplementedError(
-            "EnvConfig.observed_graph_parity is not ported to "
-            "vln_magic_tpu_torch yet (see ROADMAP.md)")
-
-
 class Rollout:
     """Greedy rollout bound to world tables, env config and a model.  It
     runs on the device that ``Tables.from_world`` put the tables on, which
     must be the model's."""
 
     def __init__(self, tables: Tables, env_cfg: EnvConfig, model):
-        refuse_unported(env_cfg)
         model_dev = next(model.parameters()).device
         if model_dev != tables.dist.device:
             raise ValueError(f"model on {model_dev}, tables on "
@@ -191,6 +253,11 @@ class Rollout:
         self.env = env_cfg
         self.model = model
         self.cfg: ModelConfig = model.cfg
+        self.parity = env_cfg.observed_graph_parity
+        self.policy_key = {"dynamic": "fused_logits", "avg": "fused_logits",
+                           "global": "global_logits",
+                           "local": "local_logits"}[self.cfg.fusion]
+        self.local_acts = self.cfg.fusion == "local"
 
     # ---- step-input assembly -------------------------------------------
 
@@ -253,9 +320,20 @@ class Rollout:
         img = torch.cat([zero, state.mem[:, None, :], tok], dim=1)
         return {**base, "gmap_img_embeds": img}
 
+    def _cur_rows(self, state: EpisodeBatch):
+        """Graph distances and hop counts from the current node to every
+        node [B, N]: the observed subgraph's in parity mode, else the full
+        graph's."""
+        if self.parity:
+            bi = torch.arange(state.batch_size, device=state.cur.device)
+            return state.obs_dist[bi, state.cur], state.obs_steps[bi, state.cur]
+        return (self.t.dist[state.scan, state.cur],
+                self.t.steps[state.scan, state.cur].float())
+
     def assemble_gmap_base(self, state: EpisodeBatch, ep: dict) -> dict:
         """``ep``: the per-episode world-table slices that ``run`` takes
-        once (``dist_f`` [B, N, N], ``pos`` [B, N, 3], ``nh`` [B, N, N])."""
+        once (``dist_f`` [B, N, N], ``pos`` [B, N, 3], and ``nh`` [B, N, N]
+        outside parity mode)."""
         t, env = self.t, self.env
         b = state.batch_size
         g = env.max_gmap_len
@@ -292,8 +370,7 @@ class Rollout:
         pos_b = ep["pos"]
         cur_pos = pos_b[bi, state.cur]                        # [B, 3]
         tok_pos = zero(_take(pos_b, token_node))
-        dist_row = t.dist[state.scan, state.cur]               # [B, N]
-        steps_row = t.steps[state.scan, state.cur].float()
+        dist_row, steps_row = self._cur_rows(state)            # [B, N]
         gdist = zero(dist_row.gather(1, token_node))
         gsteps = zero(steps_row.gather(1, token_node))
         size = self.cfg.angle_feat_size
@@ -305,7 +382,8 @@ class Rollout:
         pos_fts = torch.cat([null7.expand(b, 2, -1), pos7], dim=1)
 
         # pairwise graph distances for the sprel bias (slots >= 2)
-        rows = zero(_take(ep["dist_f"], token_node))           # [B, G', N]
+        dist_b = state.obs_dist if self.parity else ep["dist_f"]
+        rows = zero(_take(dist_b, token_node))                 # [B, G', N]
         pair = rows.gather(2, token_node[:, None, :].expand(-1, rows.shape[1], -1))
         pair = pair * token_valid[:, None, :]
         pair_dists = pair.new_zeros((b, g, g))
@@ -339,8 +417,7 @@ class Rollout:
         pos_b = ep["pos"]
         cur_pos = pos_b[bi, state.cur]
         start_pos = pos_b[bi, state.start]
-        dist_row = t.dist[state.scan, state.cur]
-        steps_row = t.steps[state.scan, state.cur].float()
+        dist_row, steps_row = self._cur_rows(state)
         start7 = geo.pos_features_7(
             cur_pos[:, None, :], start_pos[:, None, :],
             dist_row[bi, state.start][:, None],
@@ -383,12 +460,13 @@ class Rollout:
     # ---- transition -----------------------------------------------------
 
     def transition(self, state: EpisodeBatch, gmap: dict, action, stop_prob,
-                   t_step: int, pano: dict, ep: dict,
+                   t_step, pano: dict, ep: dict,
                    local_actions: bool = False):
         """Greedy (argmax) transition: record the stop probability, end
         episodes that stop, run out of frontier or of steps, and jump the
-        rest to their target, facing along the last edge walked.  Returns
-        the chosen target per row (-1 when not moving)."""
+        rest to their target, facing along the last edge walked.  ``t_step``
+        is the step index, an int or a [B] tensor of per-lane clocks.
+        Returns the chosen target per row (-1 when not moving)."""
         t = self.t
         b = state.batch_size
         dev = action.device
@@ -418,16 +496,26 @@ class Rollout:
             target = gmap["token_node"].gather(1, slot[:, None])[:, 0]
         target = torch.where(moving, target, state.cur)
 
-        # bounded next-hop walk toward the target: its last-but-one node
-        # gives the view of the final edge.  The hop bound is tight: every
-        # target is observed, and an observed node is <= T + 1 hops away.
-        col = ep["nh"].gather(2, target[:, None, None].expand(-1, trash, 1))[..., 0]
-        p, prev = state.cur, state.cur
-        for _ in range(max(2, min(WALK_HOPS, self.env.max_action_len + 1))):
-            nxt = col.gather(1, p[:, None])[:, 0]
-            stepping = moving & (p != target) & (nxt >= 0)
-            prev = torch.where(stepping & (nxt == target), p, prev)
-            p = torch.where(stepping, nxt, p)
+        # bounded walk toward the target: its last-but-one node gives the
+        # view of the final edge, and in parity mode the walk is the
+        # expanded trajectory.  The hop bound is tight: every target is
+        # observed, and an observed node is <= T + 1 hops away.  Parity
+        # walks the observed subgraph (obs_dist is symmetric, so the
+        # target's row is its column), else next_hop.
+        hops = max(2, min(WALK_HOPS, self.env.max_action_len + 1))
+        if self.parity:
+            prev, state.traj_len = self._walk_observed(
+                state, target, moving, hops, state.traj_nodes,
+                state.traj_len)
+        else:
+            col = ep["nh"].gather(
+                2, target[:, None, None].expand(-1, trash, 1))[..., 0]
+            p = prev = state.cur
+            for _ in range(hops):
+                nxt = col.gather(1, p[:, None])[:, 0]
+                stepping = moving & (p != target) & (nxt >= 0)
+                prev = torch.where(stepping & (nxt == target), p, prev)
+                p = torch.where(stepping, nxt, p)
 
         cand_prev = t.cand_ids[state.scan, prev]
         eq = cand_prev == target[:, None]
@@ -443,8 +531,55 @@ class Rollout:
         state.cur = torch.where(moving, target, state.cur)
         state.visited[bi, torch.where(moving, state.cur, trash)] = True
         state.ended = state.ended | just_ended
+        if self.parity:
+            relax_observed(state, t, state.cur, moving)
         _observe(state, t)
         return torch.where(moving, target, -1)
+
+    def _observed_next(self, state: EpisodeBatch, p, dcol, target):
+        """Next node from ``p`` on an observed shortest path toward
+        ``target`` (``dcol``: obs distances to the target [B, N]): the
+        candidate c of p minimising w(p, c) + d(c, target) (first minimum)
+        among those that are visited or the target itself, since obs_dist
+        routes through visited nodes only.  Returns (next node, found)."""
+        t = self.t
+        cand = t.cand_ids[state.scan, p]                          # [B, C]
+        safe = cand.clamp(min=0)
+        stepable = t.cand_mask[state.scan, p] & (
+            state.visited.gather(1, safe) | (cand == target[:, None]))
+        cost = torch.where(stepable,
+                           t.cand_dist[state.scan, p] + dcol.gather(1, safe),
+                           INF_DIST)
+        j = cost.argmin(dim=1, keepdim=True)
+        return (cand.gather(1, j)[:, 0],
+                cost.gather(1, j)[:, 0] < INF_DIST / 2)
+
+    def record_backtrack(self, state: EpisodeBatch, stop_node):
+        """The trajectory buffer with the stop-score backtrack path (cur ->
+        stop node) over the observed subgraph appended, as (traj_nodes,
+        traj_len); the state keeps its own.  Parity mode only."""
+        nodes = state.traj_nodes.clone()
+        _, ln = self._walk_observed(state, stop_node, stop_node != state.cur,
+                                    WALK_HOPS, nodes, state.traj_len)
+        return nodes, ln
+
+    def _walk_observed(self, state: EpisodeBatch, target, moving, hops,
+                       nodes, ln):
+        """Walk the ``moving`` rows from their current node toward
+        ``target`` over the observed subgraph, at most ``hops`` hops,
+        appending each hop to the trajectory ``nodes`` (in place).
+        Returns (the node before the target on the walk, the current node
+        where no hop reached it; the new trajectory lengths)."""
+        bi = torch.arange(state.batch_size, device=target.device)
+        dcol = state.obs_dist[bi, target]
+        p = prev = state.cur
+        for _ in range(hops):
+            nxt, ok = self._observed_next(state, p, dcol, target)
+            stepping = moving & (p != target) & ok
+            prev = torch.where(stepping & (nxt == target), p, prev)
+            ln = _record_hop(nodes, ln, stepping, nxt)
+            p = torch.where(stepping, nxt, p)
+        return prev, ln
 
     def final_stop_node(self, state: EpisodeBatch):
         """Backtrack target: the node with the highest recorded stop
@@ -456,6 +591,61 @@ class Rollout:
 
     # ---- the episode loop -----------------------------------------------
 
+    def episode_tables(self, state: EpisodeBatch) -> dict:
+        """The per-episode world-table slices a step reads, taken once per
+        wave (or per streamed chunk); parity reads obs_dist, not next_hop."""
+        t = self.t
+        ep = {"dist_f": t.dist[state.scan], "pos": t.positions[state.scan]}
+        if not self.parity:
+            ep["nh"] = t.next_hop[state.scan]
+        return ep
+
+    def step(self, state: EpisodeBatch, ep: dict, txt_embeds, txt_masks,
+             txt_kv, lane_t):
+        """One greedy step of every lane (state updated in place).
+        ``lane_t``: the step index, an int, or a [B] tensor of per-lane
+        clocks (streaming), wherever it has per-episode meaning: the step-id
+        stamp and the forced stop at ``max_action_len - 1``.
+
+        Returns (chosen target per lane, -1 when not moving; lanes live at
+        the top of the step; lanes that ended in it)."""
+        model = self.model
+        bi = torch.arange(state.batch_size, device=state.cur.device)
+        trash = self.t.num_nodes
+        # stamp the current node's step id before any forward
+        live0 = ~state.ended
+        state.step_ids[bi, torch.where(live0, state.cur, trash)] = \
+            torch.where(live0, lane_t + 1, state.step_ids[:, trash])
+        pano = self.assemble_pano(state)
+        gmap_base = self.assemble_gmap_base(state, ep)
+        vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
+
+        pano_embeds, pano_fused, _ = model.panorama(
+            pano["view_img_fts"], pano["loc_fts"], pano["nav_types"],
+            pano["pano_masks"])
+        # the episode state stays f32 whatever the model's dtype
+        self.update_node_embeds(state, pano_embeds.float(),
+                                pano_fused.float(), pano["cand_ids"],
+                                pano["cand_mask"])
+        gmap = self.assemble_gmap(state, gmap_base)
+        vp = self.assemble_vp(state, pano_embeds, vp_base)
+        outs = model.navigation(
+            txt_embeds, txt_masks, gmap["gmap_img_embeds"],
+            gmap["gmap_step_ids"], gmap["gmap_pos_fts"],
+            gmap["gmap_masks"], gmap["gmap_visited_masks"],
+            gmap["gmap_pair_dists"], vp["vp_img_embeds"],
+            vp["vp_pos_fts"], vp["vp_masks"], vp["vp_nav_masks"],
+            vp["gmap_local_slot"], vp["vp_cand_visited"],
+            txt_cross_kvs=txt_kv)
+        state.mem = outs["cls_embeds"].float()
+
+        logits = outs[self.policy_key]
+        action = logits.argmax(dim=-1)
+        stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
+        chosen = self.transition(state, gmap, action, stop_prob, lane_t, pano,
+                                 ep, self.local_acts)
+        return chosen, live0, state.ended & live0
+
     @torch.no_grad()
     def run(self, state: EpisodeBatch, txt_ids, txt_masks,
             feedback: str = "argmax", ensemble_n: int = 1):
@@ -463,64 +653,27 @@ class Rollout:
 
         Returns aux: ``actions`` [T, B] chosen targets (-1 when not
         moving), ``stop_node``, ``final_cur``, ``semantic_steps`` (episodes
-        live at the top of each step, summed) and ``gmap_overflow``."""
+        live at the top of each step, summed), ``gmap_overflow`` and, in
+        parity mode, the expanded trajectory ``traj_nodes``/``traj_len``
+        with the backtrack appended."""
         if feedback != "argmax":
             raise NotImplementedError(
                 f"feedback={feedback!r}: only greedy argmax decoding is "
                 "ported to vln_magic_tpu_torch yet (see ROADMAP.md)")
         if ensemble_n != 1:
             raise NotImplementedError("ensemble_n > 1 is not ported yet")
-        model, t = self.model, self.t
-        policy_key = {"dynamic": "fused_logits", "avg": "fused_logits",
-                      "global": "global_logits",
-                      "local": "local_logits"}[self.cfg.fusion]
-        local_acts = self.cfg.fusion == "local"
-
-        txt_embeds, _ = model.language(txt_ids, txt_masks)
-        txt_kv = model.text_cross_kv(txt_embeds) if self.cfg.hoist_text_kv \
-            else None
-        ep = {"dist_f": t.dist[state.scan], "pos": t.positions[state.scan],
-              "nh": t.next_hop[state.scan]}
-        b = state.batch_size
-        bi = torch.arange(b, device=state.cur.device)
-        trash = t.num_nodes
+        txt_embeds, _ = self.model.language(txt_ids, txt_masks)
+        txt_kv = self.model.text_cross_kv(txt_embeds) \
+            if self.cfg.hoist_text_kv else None
+        ep = self.episode_tables(state)
         actions, live_n = [], []
         for t_step in range(self.env.max_action_len):
-            # stamp the current node's step id before any forward
-            live0 = ~state.ended
-            state.step_ids[bi, torch.where(live0, state.cur, trash)] = \
-                torch.where(live0, t_step + 1, state.step_ids[:, trash])
-            pano = self.assemble_pano(state)
-            gmap_base = self.assemble_gmap_base(state, ep)
-            vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
-
-            pano_embeds, pano_fused, _ = model.panorama(
-                pano["view_img_fts"], pano["loc_fts"], pano["nav_types"],
-                pano["pano_masks"])
-            # the episode state stays f32 whatever the model's dtype
-            self.update_node_embeds(state, pano_embeds.float(),
-                                    pano_fused.float(), pano["cand_ids"],
-                                    pano["cand_mask"])
-            gmap = self.assemble_gmap(state, gmap_base)
-            vp = self.assemble_vp(state, pano_embeds, vp_base)
-            outs = model.navigation(
-                txt_embeds, txt_masks, gmap["gmap_img_embeds"],
-                gmap["gmap_step_ids"], gmap["gmap_pos_fts"],
-                gmap["gmap_masks"], gmap["gmap_visited_masks"],
-                gmap["gmap_pair_dists"], vp["vp_img_embeds"],
-                vp["vp_pos_fts"], vp["vp_masks"], vp["vp_nav_masks"],
-                vp["gmap_local_slot"], vp["vp_cand_visited"],
-                txt_cross_kvs=txt_kv)
-            state.mem = outs["cls_embeds"].float()
-
-            logits = outs[policy_key]
-            action = logits.argmax(dim=-1)
-            stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
+            chosen, live0, _ = self.step(state, ep, txt_embeds, txt_masks,
+                                         txt_kv, t_step)
+            actions.append(chosen)
             live_n.append(live0.sum())
-            actions.append(self.transition(state, gmap, action, stop_prob,
-                                           t_step, pano, ep, local_acts))
 
-        return {
+        aux = {
             "actions": torch.stack(actions),
             "stop_node": self.final_stop_node(state),
             "final_cur": state.cur,
@@ -528,3 +681,17 @@ class Rollout:
             "gmap_overflow": (state.obs_count
                               > self.env.max_gmap_len - 2).sum(),
         }
+        if self.parity:
+            aux["traj_nodes"], aux["traj_len"] = self.record_backtrack(
+                state, aux["stop_node"])
+        return aux
+
+
+def _record_hop(nodes, ln, stepping, nxt):
+    """Append ``nxt`` to the trajectory ``nodes`` (in place) of the
+    ``stepping`` rows and return the new lengths; a full buffer keeps
+    overwriting its last slot, as the reference's does."""
+    bi = torch.arange(nodes.shape[0], device=nxt.device)
+    wi = torch.where(stepping, ln.clamp(max=MAX_TRAJ), MAX_TRAJ)
+    nodes[bi, wi] = torch.where(stepping, nxt, nodes[bi, wi])
+    return ln + stepping.long()

@@ -1,0 +1,1 @@
+from .attention import fused_attention, fused_attention_reference

@@ -1,16 +1,17 @@
-"""Packed-head attention: the CUDA kernel's wrapper and its plain version.
+"""Attention kernels: their wrappers and their plain versions.
 
 ``packed_attention`` replaces the TPU kernels of
 ``vln_magic_tpu/ops/attention.py`` (``_packed_kernel_grouped``, lines 81-142,
 and ``_packed_kernel``, lines 54-78; ``pl.pallas_call`` at lines 216 and
-238).  The kernel is ``csrc/packed_attention.cu``; its header says what it
-computes, what bounds it on the H100 (bytes: about 67 MB, about 20 us at
-3.35 TB/s at the global self-attention shape) and how it is laid out.
+238); its kernel is ``csrc/packed_attention.cu``.  ``fused_attention``
+replaces ``_kernel`` (lines 37-51; ``pl.pallas_call`` at line 272); its
+kernel is ``csrc/fused_attention.cu``.  Each source's header says what it
+computes, what bounds it on the H100 and how it is laid out.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a C interface at first use, into ``vln_magic_tpu_torch/build/``, and
-loaded with ctypes.  A CPU tensor takes ``packed_attention_reference``; a
-CUDA tensor launches the kernel or raises.
+loaded with ctypes.  A CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,12 +27,19 @@ import threading
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "packed_attention.cu")
+KERNELS = ("packed_attention", "fused_attention")
 BUILD_DIR = os.path.join(_PKG, "build")
 HEAD_DIMS = (16, 32, 64, 128)
+MAX_FUSED_KEYS = 256          # csrc/fused_attention.cu keeps 8 key tiles
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = {
+    "packed_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_void_p]),
+    "fused_attention": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                        + [ctypes.c_float, ctypes.c_void_p]),
+}
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
@@ -56,45 +64,55 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/packed_attention.cu")
+                           "build the kernels in vln_magic_tpu_torch/csrc/")
     return path
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernel (once per source content) and return the path of
-    the shared library.  ``verbose`` prints ptxas' register and shared
-    memory report."""
-    with open(SOURCE, "rb") as f:
+def _source(name: str) -> str:
+    return os.path.join(_PKG, "csrc", f"{name}.cu")
+
+
+def _lib_path(name: str) -> str:
+    with open(_source(name), "rb") as f:
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib_path = os.path.join(BUILD_DIR, f"libpacked_attention_{tag}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, flush=True)
-    os.replace(tmp, lib_path)
-    return lib_path
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
-def _load():
-    global _lib
+def build(names=KERNELS, verbose: bool = False) -> dict:
+    """Compile each named kernel (once per source content) and return
+    ``{name: library path}``.  ``verbose`` prints ptxas' register and
+    shared memory report."""
+    paths = {}
+    for name in names:
+        lib_path = paths[name] = _lib_path(name)
+        if os.path.exists(lib_path):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-o", tmp, _source(name)]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} ({res.returncode}):"
+                               f"\n{res.stderr}")
+        if verbose:
+            print(res.stderr, flush=True)
+        os.replace(tmp, lib_path)
+    return paths
+
+
+def _load(name: str):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.vln_packed_attention
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                           + [ctypes.c_float, ctypes.c_void_p])
+        if name not in _libs:
+            lib = ctypes.CDLL(build((name,))[name])
+            fn = getattr(lib, f"vln_{name}")
+            fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _libs[name] = lib
+    return _libs[name]
 
 
 def _check(q, k, v, mask_bias, sprel_bias, num_heads):
@@ -146,7 +164,7 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _load().vln_packed_attention(
+        rc = _load("packed_attention").vln_packed_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
             None if sprel_bias is None else sprel_bias.data_ptr(),
             out.data_ptr(), b, num_heads, lq, lk, hd, _DTYPE_CODE[q.dtype],
@@ -160,3 +178,113 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
 
 # kernel launches since the count was last reset (chip_smoke.py reads it)
 packed_attention.launches = 0
+
+
+def fused_attention_reference(q, k, v, bias):
+    """Plain PyTorch version of ``fused_attention`` (the JAX oracle
+    ``fused_attention_reference``, vln_magic_tpu/ops/attention.py:26): the
+    scores in q's dtype, divided by sqrt(hd) in that dtype."""
+    hd = q.shape[-1]
+    root = torch.tensor(math.sqrt(hd), dtype=torch.float32,
+                        device=q.device).to(q.dtype)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / root
+    scores = scores + bias.to(scores.dtype)
+    probs = torch.softmax(scores.float(), dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype), v)
+    return out, probs.mean(dim=1)
+
+
+def fused_attention_error(q, k, v, bias, out, probs, atol=2e-5):
+    """How far a ``fused_attention`` result (``out``, ``probs``) lies from
+    the kernel's own arithmetic.  The plain version on the f32 upcast of the
+    same inputs (exact from bf16) has the kernel's f32 scores, f32 softmax
+    and unrounded map, so the map must agree within ``atol``.  ``out`` may
+    differ further by one rounding of P to V's dtype before P.V and one of
+    out itself, each at most half an ulp (u = 2**-8 relative in bf16, 0 in
+    f32), so its limit per element is
+    ``1.01 * u * (sum_k p|v| + |out32|) + atol``.
+
+    Returns ``(out max abs err, map max abs err, the largest share of the
+    out limit used)``; a result within its limits has a map error <= atol
+    and a share <= 1."""
+    f = lambda x: x.float()
+    out32, map32 = fused_attention_reference(f(q), f(k), f(v), bias)
+    pv_abs = fused_attention_reference(f(q), f(k), f(v).abs(), bias)[0]
+    u = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
+    diff = (f(out) - out32).abs()
+    limit = 1.01 * u * (pv_abs + out32.abs()) + atol
+    return (diff.max().item(), (f(probs) - map32).abs().max().item(),
+            (diff / limit).max().item())
+
+
+def _check_fused(q, k, v, bias):
+    """Validate the inputs; return the bias as f32 expanded (stride 0 on
+    its broadcast dimensions) to [B, H, Lq, Lk]."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, L, hd]")
+    b, h, lq, hd = q.shape
+    lk = k.shape[2]
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if not 0 < lk <= MAX_FUSED_KEYS:
+        raise ValueError(f"Lk {lk} not in [1, {MAX_FUSED_KEYS}]")
+    if k.shape != (b, h, lk, hd) or v.shape != (b, h, lk, hd) or lq == 0:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    full = (b, h, lq, lk)
+    try:
+        fits = torch.broadcast_shapes(bias.shape, full) == full
+    except RuntimeError:
+        fits = False
+    if bias.dim() > 4 or not bias.is_floating_point() or not fits:
+        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast to "
+                         f"{full}")
+    if any(t.device != q.device for t in (k, v, bias)):
+        raise ValueError("all inputs must be on one device")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous")
+    return bias.to(torch.float32).expand(full)
+
+
+def fused_attention(q, k, v, bias):
+    """Biased attention on split heads with the head-averaged map.
+
+    q ``[B, H, Lq, hd]``; k, v ``[B, H, Lk, hd]``, float32 or bfloat16, hd in
+    {16, 32, 64, 128}, Lk <= 256; ``bias`` broadcastable to
+    ``[B, H, Lq, Lk]`` (mask and sprels summed), read in f32 through its
+    strides.  Returns ``(out [B, H, Lq, hd] in q's dtype, probs [B, Lq, Lk]
+    f32)``.  Forward only: a CUDA input that requires grad raises.
+    """
+    bias4 = _check_fused(q, k, v, bias)
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, bias)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention runs on cpu or cuda, not "
+                         f"{q.device.type}")
+    if any(t.requires_grad for t in (q, k, v, bias)):
+        raise RuntimeError("fused_attention has no backward: its inputs "
+                           "must not require grad")
+    b, h, lq, hd = q.shape
+    lk = k.shape[2]
+    out = torch.empty_like(q)
+    probs = torch.empty((b, lq, lk), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 4)(*bias4.stride())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _load("fused_attention").vln_fused_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
+            ctypes.addressof(strides), out.data_ptr(), probs.data_ptr(), b, h,
+            lq, lk, hd, _DTYPE_CODE[q.dtype], float(1.0 / math.sqrt(hd)),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    fused_attention.launches += 1
+    return out, probs
+
+
+# kernel launches since the count was last reset (chip_smoke.py reads it)
+fused_attention.launches = 0
