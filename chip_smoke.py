@@ -10,22 +10,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    started together);
 2. packed kernel vs plain: ``packed_attention`` on the card against its
    plain PyTorch version at every shape of the main path (B 256, H 2,
-   hd 64) and at edge shapes, in f32 (2e-5 absolute) and bf16 (5e-2
-   absolute), with the kernel's time, its bound, the plain version's time
-   and, as a yardstick only, ``scaled_dot_product_attention`` on the same
-   inputs;
+   hd 64) and at edge shapes (the tensor-core route's fragment edges, and
+   Lk 257, which takes the SIMT route), in f32 (2e-5 absolute) and bf16
+   (5e-2 absolute), and against its own arithmetic, the plain version on
+   the f32 upcast: out within one bf16 rounding of P and one of out
+   (``attention.packed_attention_error``).  Each row names the route the
+   call took and gives the kernel's time, its bound, the plain version's
+   time and, as a yardstick only, ``scaled_dot_product_attention`` on the
+   same inputs.  Every time in phases 2 and 7 is device time, from a CUDA
+   graph of 20 calls (``time_ms``); the packed kernel's rows also give its
+   time through the wrapper as a caller pays it (``eager_ms``);
 3. golden decodes: the pinned tests/golden_decode.json and
    tests/golden_decode_parity.json trajectories, in f32 with the kernel
-   on, from the weights in tests/fixtures/; and the same model streamed
-   over 4 lanes, equal per episode to its wave decode;
+   on (the SIMT route), from the weights in tests/fixtures/; and the same
+   model streamed over 4 lanes, equal per episode to its wave decode;
 4. main path: ``Navigator.evaluate`` on 256 items at MAGIC-S full width
    (hidden 128, 2 heads, 6/2/3 layers, CLIP-768 features, 200-token
    instructions, gmap 128, T 15, 3 scans x 320 nodes), bf16, random
-   weights from a seed; the kernel must launch 216 times per wave;
+   weights from a seed; the kernel must launch 216 times per wave, every
+   launch on the tensor-core route;
 5. streaming: the same navigator streams 1,024 items over its 256 lanes;
    ``packed_attention`` must launch 6 times per language batch and 14 per
-   step, and the share of episodes equal to the wave decode is reported;
-6. parity: one wave of 256 items with observed-graph parity on;
+   step, all on the tensor-core route, and the share of episodes equal to
+   the wave decode is reported;
+6. parity: one wave of 256 items with observed-graph parity on, 216
+   tensor-core launches;
 7. fused kernel vs plain: ``fused_attention`` against its plain version at
    the MAGIC-S and MAGIC teacher head layouts at the six path shapes and at
    edge shapes, in f32 and bf16, with its time, bound and plain time.  Out
@@ -41,6 +50,7 @@ Then the per-kernel summary line, the card line, and the result line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -82,7 +92,44 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
+@functools.lru_cache(maxsize=None)
+def _warmup_stream():
+    """One side stream for every warm-up before a capture: each new stream
+    that runs a cuBLAS call gets a workspace of its own, kept to the end."""
+    return torch.cuda.Stream()
+
+
+def time_ms(fn, iters=20, reps=5, warmup=3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, replayed ``reps`` times between two events, so the host's cost of
+    each call (Python, checks, the launch) is not in it."""
+    side = _warmup_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def eager_ms(fn, iters=20, warmup=3) -> float:
+    """Time of one call of ``fn`` as a caller pays it: ``iters`` calls back
+    to back between two events.  Where the host takes longer per call than
+    the device, this is the host's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -163,27 +210,51 @@ def phase_kernel_vs_plain(card):
               ("ungrouped_h4_hd16", 4, 4, 8, 8, 16, False, False, 0),
               ("fully_masked_row", 4, 2, 16, 24, 64, True, True, 0),
               ("rxr_lk250_hd32", 2, 3, 20, 250, 32, False, False, 0),
-              ("hd128", 2, 1, 5, 33, 128, True, True, 0)]
-    summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-               "max_abs_err": 0.0}
+              ("hd128", 2, 1, 5, 33, 128, True, True, 0),
+              ("lq1_lk1", 1, 2, 1, 1, 64, True, False, 0),
+              ("lq15_lk9_hd32", 2, 2, 15, 9, 32, True, False, 0),
+              ("lq17_lk17_h4_hd16", 3, 4, 17, 17, 16, False, True, 0),
+              ("lq63_lk16", 2, 2, 63, 16, 64, True, False, 0),
+              ("lq65_lk255_hd128", 2, 1, 65, 255, 128, True, True, 0),
+              ("lk256", 1, 2, 64, 256, 64, True, False, 0),
+              ("lk257_simt", 2, 2, 20, 257, 64, True, False, 0)]
+    summary = {dname: {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+                       "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+                       "ops_ms": 0.0, "max_abs_err": 0.0,
+                       "exact_limit_used": 0.0}
+               for dname in ("float32", "bfloat16")}
     for seed, (name, b, h, lq, lk, hd, sprel, masked, per_wave) in \
             enumerate(cases):
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            dname = str(dtype).split(".")[-1]
             q, k, v, mask, sp = make_inputs(b, h, lq, lk, hd, dtype, sprel,
                                             seed, masked)
             want = ref(q, k, v, mask, sp, h)
             attention.packed_attention_reference = plain_must_not_run
             try:
+                tc_before = pa.tc_launches
                 got = pa(q, k, v, mask, sp, num_heads=h)
                 torch.cuda.synchronize()
+                route = "tensor_core" if pa.tc_launches > tc_before else "simt"
                 ms = time_ms(lambda: pa(q, k, v, mask, sp, num_heads=h))
+                host_ms = eager_ms(lambda: pa(q, k, v, mask, sp, num_heads=h))
             finally:
                 attention.packed_attention_reference = ref
+            # against the plain version on the same inputs (in bf16 it
+            # rounds the scores, which the kernel does not) ...
             err = (got.float() - want.float()).abs().max().item()
-            if not (torch.isfinite(got).all() and err <= tol):
-                raise AssertionError(f"{name} {dtype}: max abs err {err} "
-                                     f"> {tol}")
+            # ... and against the kernel's own arithmetic: the plain version
+            # on the f32 upcast, out within one rounding of P and one of out
+            exact_err, used = attention.packed_attention_error(
+                q, k, v, mask, sp, h, got, atol=F32_TOL)
+            want_route = ("tensor_core" if dtype == torch.bfloat16
+                          and lk <= attention.MAX_TC_KEYS else "simt")
+            if not (torch.isfinite(got).all() and err <= tol and used <= 1.0
+                    and route == want_route):
+                raise AssertionError(
+                    f"{name} {dname} ({route} route, want {want_route}): max "
+                    f"abs err {err} (tol {tol}); against f32 arithmetic "
+                    f"{exact_err}, {used:.3f} of its limit")
             plain_ms = time_ms(lambda: ref(q, k, v, mask, sp, h))
             # yardstick only: one PyTorch call computing the same function
             split = lambda x: x.view(b, x.shape[1], h, hd).transpose(1, 2)
@@ -195,18 +266,23 @@ def phase_kernel_vs_plain(card):
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             emit({"phase": "kernel_vs_plain", "shape": name,
                   "B": b, "H": h, "Lq": lq, "Lk": lk, "hd": hd,
-                  "sprel": sprel, "dtype": str(dtype).split(".")[-1],
-                  "max_abs_err": err, "tol": tol, "ms": ms,
+                  "sprel": sprel, "dtype": dname, "route": route,
+                  "max_abs_err": err, "tol": tol,
+                  "exact_max_abs_err": exact_err,
+                  "exact_limit_used": used, "ms": ms, "eager_ms": host_ms,
                   "plain_ms": plain_ms, "library_ms": lib_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "launches_per_wave": per_wave, "card": card})
-            if dtype == torch.bfloat16 and per_wave:
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+            if per_wave:
+                wave = summary[dname]
+                for key, val in (("ms", ms), ("eager_ms", host_ms),
+                                 ("plain_ms", plain_ms),
                                  ("bound_ms", bound_ms),
                                  ("library_ms", lib_ms),
                                  ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                    summary[key] += per_wave * val
-                summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                    wave[key] += per_wave * val
+                wave["max_abs_err"] = max(wave["max_abs_err"], err)
+                wave["exact_limit_used"] = max(wave["exact_limit_used"], used)
 
     # malformed input raises instead of reaching either version
     q, k, v, mask, _ = make_inputs(2, 2, 4, 4, 24, torch.float32, False, 0)
@@ -216,7 +292,10 @@ def phase_kernel_vs_plain(card):
         pass
     else:
         raise AssertionError("head dim 24 was accepted")
-    return summary
+    emit({"phase": "kernel_vs_plain_per_wave",
+          "per": f"the six path shapes x their launches ({LAUNCHES_PER_WAVE})",
+          **summary, "card": card})
+    return summary["bfloat16"]
 
 
 def golden_config(parity=False, lanes=8):
@@ -253,7 +332,7 @@ def phase_golden(card):
                            ("golden_decode_parity.json", True)):
         nav = Navigator(golden_config(parity), world, params=flat,
                         device="cuda")
-        packed_attention.launches = 0
+        packed_attention.launches = packed_attention.tc_launches = 0
         (_, _), preds = nav.evaluate(items, batch_size=8)
         got = [p["trajectory_idx"] for p in preds]
         with open(os.path.join(ROOT, "tests", golden)) as f:
@@ -266,9 +345,13 @@ def phase_golden(card):
                                      f"step {step}: {g} vs {w}")
         if len(got) != len(want):
             raise AssertionError(f"{golden}: episode count differs")
+        if packed_attention.tc_launches:
+            raise AssertionError(f"{golden}: an f32 call took the "
+                                 f"tensor-core route")
         emit({"phase": "golden_decode", "golden": golden, "parity": parity,
               "episodes": len(got), "match": True,
-              "kernel_launches": packed_attention.launches, "card": card})
+              "kernel_launches": packed_attention.launches,
+              "route": "simt", "card": card})
 
     # streaming equals waves: 4 lanes, 10 items of one instruction length
     nav = Navigator(golden_config(lanes=4), world, params=flat,
@@ -340,13 +423,26 @@ def timed_evaluate(nav, items, **kw):
                                                    packed_attention)
 
     torch.cuda.synchronize()
-    packed_attention.launches = fused_attention.launches = 0
+    packed_attention.launches = packed_attention.tc_launches = 0
+    fused_attention.launches = 0
     t0 = time.perf_counter()
     (avg, _), preds = nav.evaluate(items, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return avg, preds, wall, {"packed_attention": packed_attention.launches,
-                              "fused_attention": fused_attention.launches}
+    return avg, preds, wall, {
+        "packed_attention": packed_attention.launches,
+        "packed_attention_tensor_core": packed_attention.tc_launches,
+        "fused_attention": fused_attention.launches}
+
+
+def check_tensor_cores(what, launches):
+    """Every bf16 ``packed_attention`` launch of a run took the tensor-core
+    route."""
+    if launches["packed_attention_tensor_core"] != launches["packed_attention"]:
+        raise AssertionError(
+            f"{what}: {launches['packed_attention_tensor_core']} of "
+            f"{launches['packed_attention']} packed_attention launches took "
+            f"the tensor-core route")
 
 
 def phase_main_path(card):
@@ -358,6 +454,7 @@ def phase_main_path(card):
     if launches["packed_attention"] != LAUNCHES_PER_WAVE * waves:
         raise AssertionError(f"packed_attention launched {launches} times, "
                              f"want {LAUNCHES_PER_WAVE} x {waves}")
+    check_tensor_cores("main path", launches)
     check_decode(nav.world, items, avg, preds)
     emit({"phase": "main_path", "batch": batch, "waves": waves,
           "T": t_steps, "setup_s": setup_s, "wall_s": wall,
@@ -388,6 +485,7 @@ def phase_streaming(card, nav):
         raise AssertionError(f"streaming launched packed_attention "
                              f"{launches['packed_attention']} times, want "
                              f"{want} ({chunks} chunks of {chunk} steps)")
+    check_tensor_cores("streaming", launches)
     check_decode(world, items, avg, preds)
     w_avg, w_preds, w_wall, _ = timed_evaluate(nav, items, stream=False)
     same = sum(a["trajectory_idx"] == b["trajectory_idx"]
@@ -413,16 +511,19 @@ def phase_parity(card, wave_nav, items):
         cfg.env, observed_graph_parity=True))
     nav = Navigator(cfg, wave_nav.world, seed=0, device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     avg, preds, wall, launches = timed_evaluate(nav, items)
     if launches["packed_attention"] != LAUNCHES_PER_WAVE:
         raise AssertionError(f"parity launched packed_attention "
                              f"{launches['packed_attention']} times, want "
                              f"{LAUNCHES_PER_WAVE}")
+    check_tensor_cores("parity", launches)
     check_decode(nav.world, items, avg, preds)
     emit({"phase": "parity", "batch": MAIN_BATCH, "T": MAIN_T,
           "wall_s": wall,
           "semantic_steps_per_s": avg["semantic_steps"] / wall,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "resident_before_gb": resident / 1e9,
           "metrics": avg, "kernels": launches, "card": card})
     return launches["packed_attention"]
 
@@ -574,10 +675,15 @@ def main():
         "ms": packed["ms"], "plain_ms": packed["plain_ms"],
         "bound_ms": packed["bound_ms"], "bound_by": by(packed),
         "library_ms": packed["library_ms"],
+        "eager_ms": packed["eager_ms"],
+        "exact_limit_used": packed["exact_limit_used"],
         "launches_by_path": {"wave": wave_launches,
                              "stream": stream_launches,
                              "parity": parity_launches},
-        "per": "one wave of the main path (216 launches, bf16)"}, {
+        "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
+                          "parity": "tensor_core", "golden_f32": "simt"},
+        "per": "one wave of the main path (216 launches, bf16, tensor-core "
+               "route)"}, {
         "name": "fused_attention", "route": "cuda",
         "source": "vln_magic_tpu_torch/csrc/fused_attention.cu",
         "replaces": "vln_magic_tpu/ops/attention.py:272",

@@ -71,8 +71,8 @@ def main():
         intervals.append((e.time_range.start, e.time_range.end))
     device_us = sum(v[1] for v in by_name.values())
     busy_us = _busy_us(intervals)
-    attn_us = sum(v[1] for k, v in by_name.items()
-                  if "packed_attention_kernel" in k)
+    attn_us = sum(v[1] for k, v in by_name.items()   # both routes
+                  if "packed_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({
         "wall_ms": wall_s * 1e3,

@@ -2,10 +2,12 @@
 against the JAX kernel in interpret mode and its XLA oracle.
 
 On the CPU the port's wrapper runs its plain PyTorch version; the CUDA
-kernel itself is compared with that plain version on the card by
-chip_smoke.py.  Inputs come from numpy with a fixed seed and go to both
-frameworks unchanged.  Tolerance 2e-5 absolute in f32 (sums in another
-order).
+kernels themselves are compared with that plain version on the card
+(tests/test_torch_kernel_cuda.py and chip_smoke.py).  Inputs come from numpy
+with a fixed seed and go to both frameworks unchanged.  Tolerance 2e-5
+absolute in f32 (sums in another order).  The tighter bf16 limit that holds
+the CUDA kernel to its own f32 arithmetic (``packed_attention_error``) is
+checked here against the JAX kernel's bf16 result.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import jax.numpy as jnp
 from vln_magic_tpu.ops.attention import (packed_attention as jax_packed,
                                          packed_attention_reference as jax_ref)
 from vln_magic_tpu_torch.ops.attention import (packed_attention,
+                                               packed_attention_error,
                                                packed_attention_reference)
 
 TOL = 2e-5
@@ -82,6 +85,35 @@ def test_plain_packed_attention_bf16_matches_jax():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,hd,sprel,masked_row", [
+    (2, 2, 16, 16, 64, True, False),    # grouped body, sprel
+    (3, 2, 16, 24, 64, True, True),     # a fully masked row
+    (3, 4, 8, 8, 16, False, False),     # ungrouped body, H 4 x hd 16
+    (4, 2, 9, 24, 32, False, False)])   # ungrouped body, odd Lq
+def test_exact_limit_admits_the_jax_kernel_in_bf16(b, h, lq, lk, hd, sprel,
+                                                   masked_row):
+    """The limit that holds the CUDA kernel on the card
+    (``packed_attention_error``: out within one bf16 rounding of P and one
+    of out, against the f32 arithmetic) admits the JAX kernel's bf16 result
+    and refuses the plain version's, which rounds the scores to bf16."""
+    q, k, v, mask, sb = _inputs(b, h, lq, lk, hd, sprel, seed=b * 100 + hd,
+                                masked_row=masked_row)
+    q = q * 3.0     # logits of std 3, as peaked as a trained model's
+    bf = lambda x: torch.from_numpy(x).bfloat16()
+    args = (bf(q), bf(k), bf(v), torch.from_numpy(mask),
+            None if sb is None else torch.from_numpy(sb), h)
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)
+    kern = jax_packed(jb(q), jb(k), jb(v), jnp.asarray(mask),
+                      None if sb is None else jnp.asarray(sb), num_heads=h,
+                      interpret=True)
+    kern = torch.from_numpy(np.asarray(kern, np.float32)).bfloat16()
+    _, used = packed_attention_error(*args, kern, atol=TOL)
+    assert used <= 1.0, used
+    plain = packed_attention(*args[:5], num_heads=h)
+    _, used = packed_attention_error(*args, plain, atol=TOL)
+    assert used > 1.0, used
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "mask_shape",

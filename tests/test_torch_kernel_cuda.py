@@ -7,10 +7,11 @@ they skip.  They import no JAX, so they also run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
 Tolerances: 2e-5 absolute in f32 (sums in another order) and 5e-2 in bf16,
-as tests/test_ops.py uses for the TPU kernels.  The fused kernel is also
-held to its own arithmetic, the plain version on the f32 upcast of the same
-inputs: the map within 2e-5 in both dtypes, out within one bf16 rounding of
-P and one of out (``attention.fused_attention_error``).
+as tests/test_ops.py uses for the TPU kernels.  Both kernels are also held
+to their own arithmetic, the plain version on the f32 upcast of the same
+inputs: out within one bf16 rounding of P and one of out
+(``attention.packed_attention_error``, ``attention.fused_attention_error``),
+and the fused kernel's map within 2e-5 in both dtypes.
 """
 
 import json
@@ -58,31 +59,48 @@ def _inputs(dev, b, h, lq, lk, hd, sprel, dtype, seed, masked_row=False):
 
 
 # (B, H, Lq, Lk, hd, sprel, fully masked row): main-path widths at a small
-# batch, an odd batch, the ungrouped layout, RxR's 250 keys, hd 128
+# batch, an odd batch, the ungrouped layout, RxR's 250 keys, hd 128; then
+# the fragment edges of the tensor-core route: Lq 1, 15, 17, 63, 65 (64-row
+# tiles, 16-row warps), Lk 1, 9, 16, 17, 255, 256 (16-key chunks, the 256
+# limit), hd 16/32/128; Lk 257 takes the SIMT route in bf16 too
 CASES = [(4, 2, 200, 200, 64, False, False),
          (4, 2, 128, 128, 64, True, False),
          (3, 2, 37, 45, 64, True, True),
          (4, 4, 8, 8, 16, False, False),
          (2, 3, 20, 250, 32, False, True),
-         (2, 1, 5, 33, 128, True, False)]
+         (2, 1, 5, 33, 128, True, False),
+         (1, 2, 1, 1, 64, True, False),
+         (2, 2, 15, 9, 32, True, False),
+         (3, 4, 17, 17, 16, False, True),
+         (2, 2, 63, 16, 64, True, False),
+         (2, 1, 65, 255, 128, True, True),
+         (1, 2, 64, 256, 64, True, False),
+         (2, 2, 20, 257, 64, True, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,lq,lk,hd,sprel,masked", CASES)
-def test_kernel_matches_plain(cuda, no_plain, dtype, b, h, lq, lk, hd, sprel,
-                              masked):
+def test_kernel_matches_plain(cuda, no_plain, monkeypatch, dtype, b, h, lq,
+                              lk, hd, sprel, masked):
     q, k, v, mask, sp = _inputs(cuda, b, h, lq, lk, hd, sprel, dtype,
                                 seed=lq + lk, masked_row=masked)
     before = attention.packed_attention.launches
+    tc_before = attention.packed_attention.tc_launches
     got = attention.packed_attention(q, k, v, mask, sp, num_heads=h)
     torch.cuda.synchronize()
     assert attention.packed_attention.launches == before + 1
+    tensor_cores = dtype == torch.bfloat16 and lk <= attention.MAX_TC_KEYS
+    assert attention.packed_attention.tc_launches == tc_before + tensor_cores
     want = no_plain(q, k, v, mask, sp, h)
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOLS[dtype], err
+    monkeypatch.setattr(attention, "packed_attention_reference", no_plain)
+    exact_err, used = attention.packed_attention_error(
+        q, k, v, mask, sp, h, got, atol=TOLS[torch.float32])
+    assert used <= 1.0, (exact_err, used)
 
 
 def test_kernel_rejects_an_unsupported_head_dim(cuda, no_plain):

@@ -3,9 +3,10 @@
 ``packed_attention`` replaces the TPU kernels of
 ``vln_magic_tpu/ops/attention.py`` (``_packed_kernel_grouped``, lines 81-142,
 and ``_packed_kernel``, lines 54-78; ``pl.pallas_call`` at lines 216 and
-238); its kernel is ``csrc/packed_attention.cu``.  ``fused_attention``
-replaces ``_kernel`` (lines 37-51; ``pl.pallas_call`` at line 272); its
-kernel is ``csrc/fused_attention.cu``.  Each source's header says what it
+238); its kernels are in ``csrc/packed_attention.cu``: a tensor-core route
+for bf16 with at most 256 keys, and a SIMT route for the rest.
+``fused_attention`` replaces ``_kernel`` (lines 37-51; ``pl.pallas_call`` at
+line 272); its kernel is ``csrc/fused_attention.cu``.  Each source's header says what it
 computes, what bounds it on the H100 and how it is laid out.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
@@ -31,12 +32,18 @@ KERNELS = ("packed_attention", "fused_attention")
 BUILD_DIR = os.path.join(_PKG, "build")
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_FUSED_KEYS = 256          # csrc/fused_attention.cu keeps 8 key tiles
+MAX_TC_KEYS = 256             # the packed tensor-core route holds a row's
+                              # logits in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = {
-    "packed_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                         + [ctypes.c_float, ctypes.c_void_p]),
-    "fused_attention": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                        + [ctypes.c_float, ctypes.c_void_p]),
+_PACKED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_void_p])
+# each kernel's exported C functions and their argument types
+_SYMBOLS = {
+    "packed_attention": {"vln_packed_attention": _PACKED_ARGS,
+                         "vln_packed_attention_tc": _PACKED_ARGS},
+    "fused_attention": {"vln_fused_attention": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])},
 }
 
 _libs: dict = {}
@@ -58,6 +65,23 @@ def packed_attention_reference(q, k, v, mask_bias, sprel_bias, num_heads):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), vh)
     return out.reshape(b, lq, d)
+
+
+def packed_attention_error(q, k, v, mask_bias, sprel_bias, num_heads, out,
+                           atol=2e-5):
+    """How far a ``packed_attention`` result ``out`` lies from the kernel's
+    own arithmetic: the plain version on the f32 upcast of the same inputs
+    (exact from bf16), whose f32 scores and softmax are the kernel's.  Out
+    may differ further by one rounding of P to V's dtype before P.V and one
+    of out itself (see ``_rounding_error``).
+
+    Returns ``(max abs err, the largest share of the limit used)``; a result
+    within its limit has a share <= 1."""
+    f = lambda x: x.float()
+    args = (mask_bias, sprel_bias, num_heads)
+    out32 = packed_attention_reference(f(q), f(k), f(v), *args)
+    pv_abs = packed_attention_reference(f(q), f(k), f(v).abs(), *args)
+    return _rounding_error(out, out32, pv_abs, q.dtype, atol)
 
 
 def _nvcc() -> str:
@@ -108,9 +132,10 @@ def _load(name: str):
     with _lib_lock:
         if name not in _libs:
             lib = ctypes.CDLL(build((name,))[name])
-            fn = getattr(lib, f"vln_{name}")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in _SYMBOLS[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
 
@@ -143,6 +168,14 @@ def _check(q, k, v, mask_bias, sprel_bias, num_heads):
         raise ValueError("inputs must be contiguous")
 
 
+def _takes_tensor_cores(q, k, v) -> bool:
+    """The packed kernel's route rule: bf16, at most 256 keys and 16-byte
+    aligned q, k, v (out is allocated aligned) take the tensor-core route;
+    everything else the SIMT route."""
+    return (q.dtype == torch.bfloat16 and k.shape[1] <= MAX_TC_KEYS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
 def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
     """Attention on packed heads.
 
@@ -161,23 +194,29 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
     b, lq, d = q.shape
     lk = k.shape[1]
     hd = d // num_heads
+    tc = _takes_tensor_cores(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _load("packed_attention").vln_packed_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
-            None if sprel_bias is None else sprel_bias.data_ptr(),
-            out.data_ptr(), b, num_heads, lq, lk, hd, _DTYPE_CODE[q.dtype],
-            float(math.sqrt(hd)), stream)
+        lib = _load("packed_attention")
+        fn = lib.vln_packed_attention_tc if tc else lib.vln_packed_attention
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
+                None if sprel_bias is None else sprel_bias.data_ptr(),
+                out.data_ptr(), b, num_heads, lq, lk, hd,
+                _DTYPE_CODE[q.dtype], float(math.sqrt(hd)), stream)
     if rc != 0:
-        raise RuntimeError(f"packed_attention kernel launch failed: "
+        raise RuntimeError(f"packed_attention kernel launch failed "
+                           f"({'tensor-core' if tc else 'SIMT'} route): "
                            f"cudaError {rc}")
     packed_attention.launches += 1
+    packed_attention.tc_launches += tc
     return out
 
 
-# kernel launches since the count was last reset (chip_smoke.py reads it)
+# kernel launches since the counts were last reset (chip_smoke.py reads
+# them): all launches, and those of the tensor-core route
 packed_attention.launches = 0
+packed_attention.tc_launches = 0
 
 
 def fused_attention_reference(q, k, v, bias):
@@ -185,8 +224,8 @@ def fused_attention_reference(q, k, v, bias):
     ``fused_attention_reference``, vln_magic_tpu/ops/attention.py:26): the
     scores in q's dtype, divided by sqrt(hd) in that dtype."""
     hd = q.shape[-1]
-    root = torch.tensor(math.sqrt(hd), dtype=torch.float32,
-                        device=q.device).to(q.dtype)
+    root = torch.full((), math.sqrt(hd), dtype=torch.float32,
+                      device=q.device).to(q.dtype)
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / root
     scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores.float(), dim=-1)
@@ -210,11 +249,20 @@ def fused_attention_error(q, k, v, bias, out, probs, atol=2e-5):
     f = lambda x: x.float()
     out32, map32 = fused_attention_reference(f(q), f(k), f(v), bias)
     pv_abs = fused_attention_reference(f(q), f(k), f(v).abs(), bias)[0]
-    u = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
-    diff = (f(out) - out32).abs()
+    err, used = _rounding_error(out, out32, pv_abs, q.dtype, atol)
+    return err, (f(probs) - map32).abs().max().item(), used
+
+
+def _rounding_error(out, out32, pv_abs, dtype, atol):
+    """``out`` against the f32 result ``out32`` of the same arithmetic, with
+    ``pv_abs`` = P.|V|: one rounding of P to ``dtype`` before P.V and one of
+    out, each at most half an ulp (u = 2**-8 relative in bf16, 0 in f32),
+    give the limit ``1.01 * u * (pv_abs + |out32|) + atol`` per element.
+    Returns ``(max abs err, the largest share of the limit used)``."""
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    diff = (out.float() - out32).abs()
     limit = 1.01 * u * (pv_abs + out32.abs()) + atol
-    return (diff.max().item(), (f(probs) - map32).abs().max().item(),
-            (diff / limit).max().item())
+    return diff.max().item(), (diff / limit).max().item()
 
 
 def _check_fused(q, k, v, bias):
