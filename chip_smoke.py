@@ -7,7 +7,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. card and build: the card's name and power limit, the torch and CUDA
    versions, and the time to build both CUDA kernels from
    vln_magic_tpu_torch/csrc/ with nvcc for sm_90a (one nvcc per source,
-   started together);
+   started together), and ptxas' registers and spills of each instantiation
+   of the fused kernel's tensor-core route;
 2. packed kernel vs plain: ``packed_attention`` on the card against its
    plain PyTorch version at every shape of the main path (B 256, H 2,
    hd 64) and at edge shapes (the tensor-core route's fragment edges, and
@@ -42,7 +43,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    both outputs are also held to the kernel's own arithmetic, the plain
    version on the f32 upcast: the map to 2e-5, out within one bf16
    rounding of P and one of out (``attention.fused_attention_error``).
-   Then its entry point once at each MAGIC-S shape, launches counted.
+   Each row names the route the call took and gives its time through the
+   wrapper (``eager_ms``); the bf16 rows also time the SIMT route on the
+   same inputs, copied to a misaligned address (``simt_ms``).  Then its
+   entry point once at each MAGIC-S shape, launches counted, every one on
+   the tensor-core route, and a second call that must give the same bits.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
@@ -54,6 +59,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -173,23 +179,61 @@ def make_inputs(b, h, lq, lk, hd, dtype, sprel, seed, masked_row=False):
     return q, k, v, mask, sp
 
 
+def ptxas_entries(report):
+    """ptxas -v's report as ``(mangled kernel name, registers, spill store
+    bytes, spill load bytes)`` per entry function."""
+    entries = []
+    for part in report.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          part)
+        entries.append((name, int(regs.group(1)) if regs else None,
+                        *(int(x) for x in spill.groups())))
+    return entries
+
+
 def phase_card_and_build(card):
     from vln_magic_tpu_torch.ops import attention
 
+    reports = {}
+
     def build_one(name):
         t0 = time.perf_counter()
-        attention.build((name,), verbose=True)
+        attention.build((name,), reports=reports)
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(attention.KERNELS)) as pool:
         each = dict(pool.map(build_one, attention.KERNELS))
     build_s = time.perf_counter() - t0
+    for name in attention.KERNELS:
+        print(reports.get(name, ""), flush=True)
     print(card, flush=True)
     emit({"phase": "card_and_build", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "kernel_build_s": build_s, "kernel_build_s_each": each})
+    # the fused tensor-core route's instantiations <hd, 16-key chunks, row
+    # tiles>
+    rows = []
+    for name, regs, spill_st, spill_ld in ptxas_entries(
+            reports.get("fused_attention", "")):
+        m = re.search(r"fused_attention_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
+        if m:
+            hd, nch, rt = map(int, m.groups())
+            rows.append({"hd": hd, "chunks": nch, "row_tiles": rt,
+                         "registers": regs, "spill_stores": spill_st,
+                         "spill_loads": spill_ld,
+                         "smem_bytes": attention.fused_tc_smem_bytes(hd, nch,
+                                                                     rt)})
+    emit({"phase": "ptxas",
+          "kernel": "fused_attention_tc_kernel<hd, chunks, row tiles>",
+          "instantiations": sorted(rows, key=lambda r: (
+              r["hd"], r["chunks"], r["row_tiles"])),
+          "note": None if rows else "library was already built: no report",
+          "card": card})
 
 
 def phase_kernel_vs_plain(card):
@@ -555,6 +599,15 @@ def fused_inputs(b, h, lq, lk, hd, dtype, full_bias, seed, masked_row=False):
     return q, k, v, bias
 
 
+def misaligned(x):
+    """A copy of ``x`` two bytes past a 16-byte boundary: the fused
+    wrapper sends it to the SIMT route."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = flat[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
 def phase_fused(card):
     """``fused_attention`` against its plain version, then its entry point
     once at each MAGIC-S path shape with the launches counted.  No single
@@ -567,6 +620,37 @@ def phase_fused(card):
     def plain_must_not_run(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
+    def checked(q, k, v, bias, want, tol, what):
+        """One call, its route, and both outputs held to the plain version's
+        ``want`` and to the kernel's own arithmetic."""
+        attention.fused_attention_reference = plain_must_not_run
+        try:
+            tc_before = fa.tc_launches
+            out, probs = fa(q, k, v, bias)
+            torch.cuda.synchronize()
+        finally:
+            attention.fused_attention_reference = ref
+        route = "tensor_core" if fa.tc_launches > tc_before else "simt"
+        err = (out.float() - want[0].float()).abs().max().item()
+        exact_err, map_err, used = attention.fused_attention_error(
+            q, k, v, bias, out, probs, atol=F32_TOL)
+        if not (torch.isfinite(out).all() and torch.isfinite(probs).all()
+                and err <= tol and map_err <= F32_TOL and used <= 1.0):
+            raise AssertionError(
+                f"fused {what} ({route} route): max abs err {err} (tol "
+                f"{tol}); against f32 arithmetic: map {map_err} (tol "
+                f"{F32_TOL}), out {exact_err}, {used:.3f} of its limit")
+        return route, err, (probs - want[1]).abs().max().item(), \
+            exact_err, map_err, used
+
+    def timed(q, k, v, bias):
+        attention.fused_attention_reference = plain_must_not_run
+        try:
+            return (time_ms(lambda: fa(q, k, v, bias)),
+                    eager_ms(lambda: fa(q, k, v, bias)))
+        finally:
+            attention.fused_attention_reference = ref
+
     cases = [(f"magic_s_{name}", MAIN_BATCH, 2, lq, lk, 64, sp, False)
              for name, lq, lk, sp, _ in PATH_SHAPES]
     cases += [(f"teacher_{name}", TEACHER[0], TEACHER[1], lq, lk, 64, sp,
@@ -576,8 +660,9 @@ def phase_fused(card):
               ("hd32_rxr_lk250", 2, 3, 20, 250, 32, False, False),
               ("fully_masked_row", 4, 2, 16, 24, 64, True, True),
               ("hd128", 2, 1, 5, 33, 128, True, True)]
-    summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-               "ops_ms": 0.0, "max_abs_err": 0.0}
+    summary = {"ms": 0.0, "eager_ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+               "max_abs_err": 0.0, "exact_limit_used": 0.0}
     for seed, (name, b, h, lq, lk, hd, full, masked) in enumerate(cases):
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
@@ -585,69 +670,84 @@ def phase_fused(card):
             q, k, v, bias = fused_inputs(b, h, lq, lk, hd, dtype, full,
                                          seed, masked)
             want = ref(q, k, v, bias)
-            attention.fused_attention_reference = plain_must_not_run
-            try:
-                out, probs = fa(q, k, v, bias)
-                torch.cuda.synchronize()
-                ms = time_ms(lambda: fa(q, k, v, bias))
-            finally:
-                attention.fused_attention_reference = ref
             # against the plain version on the same inputs (in bf16 it
-            # rounds the scores, which the kernel does not) ...
-            err = (out.float() - want[0].float()).abs().max().item()
-            plain_map_err = (probs - want[1]).abs().max().item()
-            # ... and against the kernel's own arithmetic: the plain version
-            # on the f32 upcast, the map to 2e-5, out within one rounding of
-            # P and one of out (attention.fused_attention_error)
-            exact_err, map_err, used = attention.fused_attention_error(
-                q, k, v, bias, out, probs, atol=F32_TOL)
-            if not (torch.isfinite(out).all() and torch.isfinite(probs).all()
-                    and err <= tol and map_err <= F32_TOL and used <= 1.0):
-                raise AssertionError(
-                    f"fused {name} {dname}: max abs err {err} (tol {tol}); "
-                    f"against f32 arithmetic: map {map_err} (tol {F32_TOL}), "
-                    f"out {exact_err}, {used:.3f} of its limit")
+            # rounds the scores, which the kernel does not), and against
+            # the kernel's own arithmetic: the plain version on the f32
+            # upcast, the map to 2e-5, out within one rounding of P and one
+            # of out (attention.fused_attention_error)
+            route, err, plain_map_err, exact_err, map_err, used = checked(
+                q, k, v, bias, want, tol, f"{name} {dname}")
+            want_route = ("tensor_core" if dtype == torch.bfloat16
+                          else "simt")
+            if route != want_route:
+                raise AssertionError(f"fused {name} {dname}: {route} route, "
+                                     f"want {want_route}")
+            ms, host_ms = timed(q, k, v, bias)
+            simt = {}
+            if dtype == torch.bfloat16:
+                # the SIMT route on the same inputs, timed beside it
+                mq, mk, mv = map(misaligned, (q, k, v))
+                simt_route, *_ = checked(mq, mk, mv, bias, want, tol,
+                                         f"{name} {dname} misaligned")
+                if simt_route != "simt":
+                    raise AssertionError(f"fused {name}: misaligned inputs "
+                                         f"took the {simt_route} route")
+                simt["simt_ms"] = timed(mq, mk, mv, bias)[0]
             plain_ms = time_ms(lambda: ref(q, k, v, bias))
             bound_ms, bytes_ms, ops_ms = fused_bound(b, h, lq, lk, hd, dtype,
                                                      full)
             emit({"phase": "fused_vs_plain", "shape": name, "B": b, "H": h,
                   "Lq": lq, "Lk": lk, "hd": hd, "full_bias": full,
-                  "dtype": dname, "max_abs_err": err, "tol": tol,
-                  "plain_map_max_abs_err": plain_map_err,
+                  "dtype": dname, "route": route, "max_abs_err": err,
+                  "tol": tol, "plain_map_max_abs_err": plain_map_err,
                   "exact_max_abs_err": exact_err,
                   "exact_limit_used": used,
                   "map_max_abs_err": map_err, "map_tol": F32_TOL,
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "ms": ms, "eager_ms": host_ms, **simt,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                   "library_ms": None, "card": card})
             if dtype == torch.bfloat16 and name.startswith("magic_s_"):
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                for key, val in (("ms", ms), ("eager_ms", host_ms),
+                                 ("simt_ms", simt["simt_ms"]),
+                                 ("plain_ms", plain_ms),
                                  ("bound_ms", bound_ms),
                                  ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
                     summary[key] += val
                 summary["max_abs_err"] = max(summary["max_abs_err"], err)
+                summary["exact_limit_used"] = max(summary["exact_limit_used"],
+                                                  used)
 
     # the entry point's own path: one call at each MAGIC-S shape, bf16
     inputs = [fused_inputs(MAIN_BATCH, 2, lq, lk, 64, torch.bfloat16, sp, i)
               for i, (_, lq, lk, sp, _) in enumerate(PATH_SHAPES)]
     torch.cuda.synchronize()
-    attention.packed_attention.launches = fa.launches = 0
+    attention.packed_attention.launches = fa.launches = fa.tc_launches = 0
     outs = [fa(*x) for x in inputs]
     torch.cuda.synchronize()
-    launches = fa.launches
-    if launches != len(PATH_SHAPES):
+    launches, tc_launches = fa.launches, fa.tc_launches
+    if launches != len(PATH_SHAPES) or tc_launches != launches:
         raise AssertionError(f"fused_attention launched {launches} times, "
-                             f"want {len(PATH_SHAPES)}")
-    for (q, _, _, _), (out, probs) in zip(inputs, outs):
+                             f"{tc_launches} on the tensor-core route; want "
+                             f"{len(PATH_SHAPES)}, all tensor-core")
+    bits = lambda x: x.view(torch.int16 if x.dtype == torch.bfloat16
+                            else torch.int32)
+    for x, (out, probs) in zip(inputs, outs):
         rows = probs.sum(-1)
-        if (out.shape != q.shape or not torch.isfinite(out).all()
+        if (out.shape != x[0].shape or not torch.isfinite(out).all()
                 or (rows - 1).abs().max().item() > 1e-5):
             raise AssertionError("fused_attention entry point: bad output")
+        again = fa(*x)       # deterministic: no atomics in the head sum
+        if not (torch.equal(bits(again[0]), bits(out))
+                and torch.equal(bits(again[1]), bits(probs))):
+            raise AssertionError("fused_attention: two calls on the same "
+                                 "inputs gave different bits")
     emit({"phase": "fused_entry_point", "calls": len(PATH_SHAPES),
           "kernels": {"fused_attention": launches,
+                      "fused_attention_tensor_core": tc_launches,
                       "packed_attention": attention.packed_attention.launches},
-          "card": card})
-    summary["launches"] = launches
+          "repeat_bitwise_equal": True, "card": card})
+    summary["launches"], summary["tc_launches"] = launches, tc_launches
     return summary
 
 
@@ -692,8 +792,13 @@ def main():
         "bound_ms": fused["bound_ms"], "bound_by": by(fused),
         "library_ms": None,
         "library_note": "no single PyTorch call returns the probability map",
+        "eager_ms": fused["eager_ms"], "simt_ms": fused["simt_ms"],
+        "exact_limit_used": fused["exact_limit_used"],
+        "tc_launches": fused["tc_launches"],
+        "route_by_path": {"entry_point": "tensor_core", "f32": "simt"},
         "per": "its entry point once at each of the six MAGIC-S path "
-               "shapes (6 launches, bf16); no model path calls it"}]})
+               "shapes (6 launches, bf16, tensor-core route); no model path "
+               "calls it"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from vln_magic_tpu.ops import fused_attention as jax_fused
 from vln_magic_tpu.ops import fused_attention_reference as jax_ref
 from vln_magic_tpu_torch.ops import fused_attention, fused_attention_reference
+from vln_magic_tpu_torch.ops import attention
 from vln_magic_tpu_torch.ops.attention import fused_attention_error
 
 TOL = 2e-5
@@ -139,7 +140,91 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     q, k, v, bias = [torch.from_numpy(x) for x in
                      _inputs(2, 3, 4, 6, 32, seed=4)]
     before = fused_attention.launches
+    tc_before = fused_attention.tc_launches
     got = fused_attention(q, k, v, bias)
     assert fused_attention.launches == before
+    assert fused_attention.tc_launches == tc_before
     for g, w in zip(got, fused_attention_reference(q, k, v, bias)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_cpu_bf16_call_takes_the_plain_version_and_counts_no_launch():
+    """Inputs the tensor-core route would take on the card still run the
+    plain version on the CPU."""
+    q, k, v, bias = [torch.from_numpy(x) for x in
+                     _inputs(2, 2, 5, 40, 64, seed=5)]
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    assert attention._fused_takes_tensor_cores(q, k, v)
+    before = (fused_attention.launches, fused_attention.tc_launches)
+    got = fused_attention(q, k, v, bias)
+    assert (fused_attention.launches, fused_attention.tc_launches) == before
+    for g, w in zip(got, fused_attention_reference(q, k, v, bias)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _misaligned(x):
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype)
+    y = flat[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("case", ["bf16", "f32", "lk256", "lk257",
+                                  "q_misaligned", "k_misaligned",
+                                  "v_misaligned"])
+def test_fused_route_rule(case):
+    """bf16 with at most 256 keys and 16-byte aligned q, k, v takes the
+    tensor-core route; f32, more keys or a misaligned input the SIMT
+    route."""
+    lk = {"lk256": 256, "lk257": 257}.get(case, 24)
+    q, k, v = (torch.zeros((2, 3, n, 32), dtype=torch.bfloat16)
+               for n in (5, lk, lk))
+    if case == "f32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif case.endswith("_misaligned"):
+        name = case[0]
+        q, k, v = (_misaligned(x) if n == name else x
+                   for n, x in zip("qkv", (q, k, v)))
+    want = case in ("bf16", "lk256")
+    assert attention._fused_takes_tensor_cores(q, k, v) == want
+
+
+@pytest.mark.parametrize("lk,chunks", [(1, 2), (32, 2), (33, 4), (64, 4),
+                                       (65, 8), (128, 8), (129, 13),
+                                       (200, 13), (208, 13), (209, 16),
+                                       (256, 16)])
+def test_fused_tc_key_bucket(lk, chunks):
+    """The key bucket: the fewest of 2, 4, 8, 13 or 16 chunks of 16 keys
+    that hold Lk (13: MAGIC's 200-token instructions)."""
+    assert attention.fused_tc_chunks(lk) == chunks
+
+
+@pytest.mark.parametrize("hd", attention.HEAD_DIMS)
+@pytest.mark.parametrize("chunks", [2, 4, 8, 13, 16])
+@pytest.mark.parametrize("rt", [1, 2])
+def test_fused_tc_smem_fits_the_h100(hd, chunks, rt):
+    """Every instantiation of the tensor-core route fits a block's 227 KB
+    of shared memory, and the MAGIC shapes (hd 64, 200 keys) leave room for
+    three blocks per SM in either block height."""
+    smem = attention.fused_tc_smem_bytes(hd, chunks, rt)
+    assert 0 < smem <= 232448
+    staged = 16 * rt * (hd + 8) * 2 + 2 * chunks * 16 * (hd + 8) * 2
+    assert smem >= staged
+    if (hd, chunks) == (64, 13):
+        assert 3 * (smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("hd,chunks,b,lq,rt", [
+    (64, 13, 256, 200, 2),     # MAGIC-S language: 1,792 32-row blocks
+    (64, 4, 256, 52, 2),       # MAGIC-S local self: 512
+    (64, 13, 16, 200, 1),      # teacher language: 112 would underfill
+    (64, 4, 16, 52, 1),        # teacher local self
+    (64, 13, 132, 33, 2),      # exactly 264
+    (64, 13, 131, 33, 1),      # 262
+    (64, 2, 256, 200, 1),      # at most 32 keys: 2 warps, one row tile
+    (32, 13, 256, 200, 1),     # hd 64 only
+    (128, 13, 256, 200, 1)])
+def test_fused_tc_row_tiles(hd, chunks, b, lq, rt):
+    """32-row blocks where they still number 264 (two per SM) at hd 64 with
+    at least 4 key chunks; 16-row blocks elsewhere."""
+    assert attention.fused_tc_row_tiles(hd, chunks, b, lq) == rt

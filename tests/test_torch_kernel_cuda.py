@@ -123,14 +123,32 @@ def _fused_inputs(dev, b, h, lq, lk, hd, full_bias, dtype, seed,
 
 
 # (B, H, Lq, Lk, hd, full bias, fully masked row): MAGIC-S and teacher head
-# layouts at a small batch, an odd batch, hd 16/32/128, RxR's 250 keys
+# layouts at a small batch, an odd batch, hd 16/32/128, RxR's 250 keys; then
+# the edges of the tensor-core route: every key bucket (Lk 1, 17, 32, 33,
+# 200, 208, 209, 255, 256 around the 2/4/8/13/16-chunk buckets), Lq 1, 15,
+# 17, 65 (16-row blocks), H 1, 3, 12, odd B, odd Lk (scalar bias and map);
+# then grids of at least 264 32-row blocks at hd 64, which take 32-row
+# blocks (Lq 33: a row tile wholly past Lq)
 FUSED_CASES = [(4, 2, 128, 128, 64, True, False),
                (4, 2, 52, 200, 64, False, False),
                (2, 12, 200, 200, 64, False, False),
                (3, 2, 37, 45, 64, True, True),
                (3, 4, 8, 8, 16, False, False),
                (2, 3, 20, 250, 32, False, True),
-               (2, 1, 5, 33, 128, True, False)]
+               (2, 1, 5, 33, 128, True, False),
+               (2, 2, 5, 1, 64, False, False),
+               (3, 3, 17, 17, 32, True, False),
+               (2, 1, 15, 32, 16, False, True),
+               (1, 2, 1, 33, 64, True, False),
+               (2, 2, 65, 200, 64, True, False),
+               (3, 12, 17, 208, 64, False, False),
+               (2, 2, 20, 209, 128, True, True),
+               (2, 3, 16, 255, 32, True, False),
+               (1, 2, 64, 256, 64, True, False),
+               (264, 2, 20, 200, 64, True, True),
+               (132, 2, 33, 45, 64, False, False),
+               (132, 1, 50, 255, 64, True, False),
+               (264, 3, 17, 128, 64, False, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -147,9 +165,13 @@ def test_fused_kernel_matches_plain(cuda, monkeypatch, dtype, b, h, lq, lk,
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(attention, "fused_attention_reference", refuse)
     before = attention.fused_attention.launches
+    tc_before = attention.fused_attention.tc_launches
     out, probs = attention.fused_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert attention.fused_attention.launches == before + 1
+    # aligned inputs: bf16 takes the tensor-core route, f32 the SIMT route
+    assert attention.fused_attention.tc_launches == \
+        tc_before + (dtype == torch.bfloat16)
     assert out.dtype == dtype and out.shape == q.shape
     assert probs.dtype == torch.float32 and probs.shape == (b, lq, lk)
     assert torch.isfinite(out).all() and torch.isfinite(probs).all()
@@ -160,6 +182,105 @@ def test_fused_kernel_matches_plain(cuda, monkeypatch, dtype, b, h, lq, lk,
         q, k, v, bias, out, probs, atol=TOLS[torch.float32])
     assert map_err <= TOLS[torch.float32], map_err
     assert used <= 1.0, (out_err, used)
+
+
+def _fused_check(q, k, v, bias, monkeypatch):
+    """One kernel call held to the plain version and to its own arithmetic;
+    returns (out, probs, whether it took the tensor-core route)."""
+    plain = attention.fused_attention_reference
+    want = plain(q, k, v, bias)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(attention, "fused_attention_reference", refuse)
+    tc_before = attention.fused_attention.tc_launches
+    out, probs = attention.fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    tc = attention.fused_attention.tc_launches > tc_before
+    monkeypatch.setattr(attention, "fused_attention_reference", plain)
+    assert torch.isfinite(out).all() and torch.isfinite(probs).all()
+    if q.dtype == torch.float32:
+        # in bf16 the plain version rounds the scores to bf16, which the
+        # kernel does not, so its distance grows with the sample count: the
+        # exact limit below, far tighter, is the bf16 gate
+        err = (out.float() - want[0].float()).abs().max().item()
+        assert err <= TOLS[q.dtype], err
+    out_err, map_err, used = attention.fused_attention_error(
+        q, k, v, bias, out, probs, atol=TOLS[torch.float32])
+    assert map_err <= TOLS[torch.float32], map_err
+    assert used <= 1.0, (out_err, used)
+    return out, probs, tc
+
+
+# the bias layouts a caller may pass, each read through its strides: one row
+# per batch row (staged once per block), one [Lq, Lk] plane for all, one per
+# batch row, one per head (float2 reads where Lk is even), one per query row
+BIAS_SHAPES = {"b11k": lambda b, h, lq, lk: (b, 1, 1, lk),
+               "11qk": lambda b, h, lq, lk: (1, 1, lq, lk),
+               "b1qk": lambda b, h, lq, lk: (b, 1, lq, lk),
+               "bhqk": lambda b, h, lq, lk: (b, h, lq, lk),
+               "bhq1": lambda b, h, lq, lk: (b, h, lq, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [3, 264])       # 16- and 32-row blocks
+@pytest.mark.parametrize("lk", [200, 45])
+@pytest.mark.parametrize("layout", list(BIAS_SHAPES))
+def test_fused_kernel_bias_layouts(cuda, monkeypatch, layout, lk, b, dtype):
+    h, lq, hd = 3, 17, 64
+    rng = np.random.default_rng(lk)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    q, k, v = (t(b, h, l, hd).to(dtype) for l in (lq, lk, lk))
+    bias = t(*BIAS_SHAPES[layout](b, h, lq, lk)) * 2
+    if bias.shape[-1] == lk:
+        bias[..., -3:] = -1e9
+    _, _, tc = _fused_check(q, k, v, bias, monkeypatch)
+    assert tc == (dtype == torch.bfloat16)
+
+
+def test_fused_kernel_misaligned_bf16_takes_the_simt_route(cuda, monkeypatch):
+    q, k, v, bias = _fused_inputs(cuda, 2, 3, 20, 200, 64, True,
+                                  torch.bfloat16, 5, masked_row=True)
+    flat = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    q_off = flat[1:1 + q.numel()].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 and not \
+        attention._fused_takes_tensor_cores(q_off, k, v)
+    before = attention.fused_attention.launches
+    _, _, tc = _fused_check(q_off, k, v, bias, monkeypatch)
+    assert not tc and attention.fused_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs give the same bits: the head sum of the
+    map has a fixed order and no atomics."""
+    q, k, v, bias = _fused_inputs(cuda, 4, 12, 65, 200, 64, True, dtype, 6)
+    first = attention.fused_attention(q, k, v, bias)
+    second = attention.fused_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    bits = lambda x: x.view(torch.int16 if x.dtype == torch.bfloat16
+                            else torch.int32)
+    for a, b in zip(first, second):
+        assert torch.equal(bits(a), bits(b))
+
+
+def test_fused_tc_smem_mirror_matches_the_kernel(cuda):
+    """``fused_tc_chunks`` and ``fused_tc_smem_bytes`` give what a launch
+    of the tensor-core route asks for."""
+    lib = attention._load("fused_attention")
+    for hd in attention.HEAD_DIMS:
+        for lk in (1, 17, 32, 33, 64, 65, 128, 129, 200, 208, 209, 256):
+            for b, lq in ((16, 200), (256, 200), (132, 33), (264, 32)):
+                nch = attention.fused_tc_chunks(lk)
+                want = attention.fused_tc_smem_bytes(
+                    hd, nch, attention.fused_tc_row_tiles(hd, nch, b, lq))
+                got = lib.vln_fused_attention_tc_smem(hd, b, lq, lk)
+                assert got == want, (hd, b, lq, lk)
+    assert lib.vln_fused_attention_tc_smem(64, 2, 8, 257) == -1
 
 
 def test_fused_kernel_refuses_inputs_that_require_grad(cuda):

@@ -6,8 +6,9 @@ and ``_packed_kernel``, lines 54-78; ``pl.pallas_call`` at lines 216 and
 238); its kernels are in ``csrc/packed_attention.cu``: a tensor-core route
 for bf16 with at most 256 keys, and a SIMT route for the rest.
 ``fused_attention`` replaces ``_kernel`` (lines 37-51; ``pl.pallas_call`` at
-line 272); its kernel is ``csrc/fused_attention.cu``.  Each source's header says what it
-computes, what bounds it on the H100 and how it is laid out.
+line 272); its kernels are in ``csrc/fused_attention.cu``, with the same two
+routes.  Each source's header says what it computes, what bounds it on the
+H100 and how it is laid out.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a C interface at first use, into ``vln_magic_tpu_torch/build/``, and
@@ -32,18 +33,20 @@ KERNELS = ("packed_attention", "fused_attention")
 BUILD_DIR = os.path.join(_PKG, "build")
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_FUSED_KEYS = 256          # csrc/fused_attention.cu keeps 8 key tiles
-MAX_TC_KEYS = 256             # the packed tensor-core route holds a row's
-                              # logits in registers
+MAX_TC_KEYS = 256             # the tensor-core routes hold a row's logits
+                              # in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PACKED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
+_FUSED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+               + [ctypes.c_float, ctypes.c_void_p])
 # each kernel's exported C functions and their argument types
 _SYMBOLS = {
     "packed_attention": {"vln_packed_attention": _PACKED_ARGS,
                          "vln_packed_attention_tc": _PACKED_ARGS},
-    "fused_attention": {"vln_fused_attention": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_void_p])},
+    "fused_attention": {"vln_fused_attention": _FUSED_ARGS,
+                        "vln_fused_attention_tc": _FUSED_ARGS,
+                        "vln_fused_attention_tc_smem": [ctypes.c_int] * 4},
 }
 
 _libs: dict = {}
@@ -102,10 +105,10 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
-def build(names=KERNELS, verbose: bool = False) -> dict:
+def build(names=KERNELS, reports: dict | None = None) -> dict:
     """Compile each named kernel (once per source content) and return
-    ``{name: library path}``.  ``verbose`` prints ptxas' register and
-    shared memory report."""
+    ``{name: library path}``.  Given a dict, ``reports`` receives ptxas'
+    register, spill and shared memory report of each kernel it builds."""
     paths = {}
     for name in names:
         lib_path = paths[name] = _lib_path(name)
@@ -116,14 +119,14 @@ def build(names=KERNELS, verbose: bool = False) -> dict:
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-o", tmp, _source(name)]
-        if verbose:
+        if reports is not None:
             cmd[1:1] = ["-Xptxas", "-v"]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} ({res.returncode}):"
                                f"\n{res.stderr}")
-        if verbose:
-            print(res.stderr, flush=True)
+        if reports is not None:
+            reports[name] = res.stderr
         os.replace(tmp, lib_path)
     return paths
 
@@ -217,6 +220,40 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
 # them): all launches, and those of the tensor-core route
 packed_attention.launches = 0
 packed_attention.tc_launches = 0
+
+
+def _fused_takes_tensor_cores(q, k, v) -> bool:
+    """The fused kernel's route rule, as the packed kernel's: bf16, at most
+    256 keys and 16-byte aligned q, k, v (out is allocated aligned) take the
+    tensor-core route; f32 and misaligned bf16 the SIMT route."""
+    return (q.dtype == torch.bfloat16 and k.shape[2] <= MAX_TC_KEYS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def fused_tc_chunks(lk: int) -> int:
+    """The tensor-core route's key bucket for ``lk`` keys, in 16-key chunks
+    (``tc_chunks`` in csrc/fused_attention.cu)."""
+    return next(n for n in (2, 4, 8, 13, 16) if lk <= 16 * n)
+
+
+def fused_tc_row_tiles(hd: int, nch: int, b: int, lq: int) -> int:
+    """The tensor-core route's 16-row tiles per block (``tc_row_tiles`` in
+    csrc/fused_attention.cu): 2 at hd 64 with at least 4 key chunks where
+    32-row blocks still number 264 (two per SM), else 1."""
+    return 2 if hd == 64 and nch >= 4 and b * -(-lq // 32) >= 264 else 1
+
+
+def fused_tc_smem_bytes(hd: int, nch: int, rt: int) -> int:
+    """Dynamic shared memory of one tensor-core block of ``rt`` row tiles
+    (``tc_smem_bytes`` in csrc/fused_attention.cu): Q [16 rt][hd + 8] and K
+    [keys][hd + 8] in bf16; V in bf16 or the warps' partial P.V in f32 that
+    alias it, whichever is larger; the mask; each warp's row max and
+    sum."""
+    warps = min(nch, 4)
+    q = 16 * rt * (hd + 8) * 2
+    kv = nch * 16 * (hd + 8) * 2
+    ox = (warps - rt) * 16 * (hd + 8) * 4
+    return q + kv + max(kv, ox) + nch * 16 * 4 + 2 * warps * 16 * 4
 
 
 def fused_attention_reference(q, k, v, bias):
@@ -317,22 +354,28 @@ def fused_attention(q, k, v, bias):
                            "must not require grad")
     b, h, lq, hd = q.shape
     lk = k.shape[2]
+    tc = _fused_takes_tensor_cores(q, k, v)
     out = torch.empty_like(q)
     probs = torch.empty((b, lq, lk), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 4)(*bias4.stride())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _load("fused_attention").vln_fused_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
-            ctypes.addressof(strides), out.data_ptr(), probs.data_ptr(), b, h,
-            lq, lk, hd, _DTYPE_CODE[q.dtype], float(1.0 / math.sqrt(hd)),
-            stream)
+        lib = _load("fused_attention")
+        fn = lib.vln_fused_attention_tc if tc else lib.vln_fused_attention
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
+                ctypes.addressof(strides), out.data_ptr(), probs.data_ptr(),
+                b, h, lq, lk, hd, _DTYPE_CODE[q.dtype],
+                float(1.0 / math.sqrt(hd)), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_attention kernel launch failed: "
+        raise RuntimeError(f"fused_attention kernel launch failed "
+                           f"({'tensor-core' if tc else 'SIMT'} route): "
                            f"cudaError {rc}")
     fused_attention.launches += 1
+    fused_attention.tc_launches += tc
     return out, probs
 
 
-# kernel launches since the count was last reset (chip_smoke.py reads it)
+# kernel launches since the counts were last reset (chip_smoke.py reads
+# them): all launches, and those of the tensor-core route
 fused_attention.launches = 0
+fused_attention.tc_launches = 0
