@@ -47,7 +47,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    wrapper (``eager_ms``); the bf16 rows also time the SIMT route on the
    same inputs, copied to a misaligned address (``simt_ms``).  Then its
    entry point once at each MAGIC-S shape, launches counted, every one on
-   the tensor-core route, and a second call that must give the same bits.
+   the tensor-core route, and a second call that must give the same bits;
+8. training at full width: ``Trainer.train_step`` of the MAKD + ICoD DAgger
+   step at ``bench.py --train``'s shape (MAGIC teacher hidden 768, 12
+   heads, and the MAGIC-S student, 6/2/3 layers each; batch 16, bf16
+   compute under autocast with f32 masters, AdamW at 4e-5, clip 40;
+   teacher-forced then sampled rollouts of T 15 over gmap 128 and
+   200-token instructions; all five abilities, MKTD, MKRW, the teacher
+   co-trained), random weights from a seed: one warm-up step, three timed
+   steps (synchronised ms each, every metric, peak memory), which must give
+   finite metrics, ``grad_norm`` > 0, moved student and teacher
+   parameters and no attention-kernel launch (the JAX train step runs no
+   Pallas kernel); then one step with ``remat`` (its peak memory), and one
+   under ``torch.profiler`` (device time, idle share, top 10 kernels);
+9. golden training step: ``tests/fixtures/golden_train_7.npz`` (a tiny JAX
+   student, teacher and critic, the spec of its world, items and
+   configuration, and JAX's ``compute_grads`` objective, per-partition
+   gradient norms and some gradient leaves) through the port's
+   ``compute_grads`` on the card in f32 with TF32 off: the objective to
+   1e-5 relative, the norms and leaves to 1e-4.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
@@ -85,6 +103,8 @@ LAUNCHES_PER_STEP = (LAUNCHES_PER_WAVE - 6) // 15            # 14
 MAIN_BATCH, MAIN_T = 256, 15
 STREAM_ITEMS = 4 * MAIN_BATCH
 TEACHER = (16, 12)          # MAGIC teacher: B 16 (bench.py's training), H 12
+TRAIN_BATCH, TRAIN_STEPS = 16, 3
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_train_7.npz")
 
 
 def emit(obj):
@@ -751,6 +771,215 @@ def phase_fused(card):
     return summary
 
 
+def train_config():
+    """``bench.py --train``'s configuration (bench.py:98-180): the MAGIC
+    teacher and the MAGIC-S student (its packed kernel switched on, which a
+    training call never takes), bf16 compute, DAgger with sampled
+    feedback, MAKD + MKTD + MKRW + ICoD."""
+    from vln_magic_tpu_torch.config import (DistillConfig, EnvConfig,
+                                            MagicConfig, ModelConfig,
+                                            TrainConfig)
+
+    depth = {"num_l_layers": 6, "num_pano_layers": 2, "num_x_layers": 3,
+             "image_feat_size": 768, "kd_heads": True}
+    return MagicConfig(
+        model=ModelConfig(hidden_size=128, num_attention_heads=2,
+                          kd_target_size=768, use_pallas_attention=True,
+                          **depth),
+        teacher_model=ModelConfig(hidden_size=768, num_attention_heads=12,
+                                  kd_target_size=128, **depth),
+        env=EnvConfig(max_action_len=MAIN_T, max_gmap_len=128,
+                      max_instr_len=200),
+        train=TrainConfig(batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                          train_alg="dagger", ml_weight=0.2, lr=4e-5,
+                          optim="adamw", grad_clip=40.0,
+                          dagger_sample="sample"),
+        distill=DistillConfig(train_kdl=True, train_teacher=True,
+                              teacher_sample_hard_mining=True,
+                              adaptive_ability_weight=True,
+                              adaptive_ability_weight_type="RW"))
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def device_breakdown(prof, wall_ms, top=10):
+    """Device kernels of a ``torch.profiler`` run: their summed time, the
+    device's busy time and idle share over ``wall_ms``, the launch count
+    and the ``top`` kernels by device time."""
+    from collections import defaultdict
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.end - e.time_range.start
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels]) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"device_kernel_ms": sum(v[1] for v in by_name.values()) / 1e3,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": len(kernels),
+            "top_kernels": [{"name": k[:120], "count": c, "ms": us / 1e3}
+                            for k, (c, us) in ranked]}
+
+
+def _reset_launches():
+    from vln_magic_tpu_torch.ops.attention import (fused_attention,
+                                                   packed_attention)
+
+    packed_attention.launches = packed_attention.tc_launches = 0
+    fused_attention.launches = fused_attention.tc_launches = 0
+
+
+def _launches():
+    from vln_magic_tpu_torch.ops.attention import (fused_attention,
+                                                   packed_attention)
+
+    return {"packed_attention": packed_attention.launches,
+            "fused_attention": fused_attention.launches}
+
+
+def phase_training(card, world):
+    """Phase 8: the full-width MAKD + ICoD DAgger train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    cfg = train_config()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, world, device="cuda")
+    rng = np.random.default_rng(2)
+    items = make_synthetic_instructions(world, TRAIN_BATCH, rng, min_path=4,
+                                        max_path=7)
+    for it in items:    # full-length 200-token instructions
+        it["instr_encoding"] = rng.integers(4, 1000, 200).astype(np.int32)
+    setup_s = time.perf_counter() - t0
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(items)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, m
+
+    warm_ms, _ = step()
+    models = {"student": tr.model, "teacher": tr.teacher_model}
+    before = {k: [p.detach().clone() for p in m.parameters()]
+              for k, m in models.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    steps = [step() for _ in range(TRAIN_STEPS)]
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = {k: sum(not torch.equal(a, p) for a, p in zip(before[k],
+                                                           m.parameters()))
+             / len(before[k]) for k, m in models.items()}
+    del before
+    metrics = [m for _, m in steps]
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"training: a metric is not finite: {metrics}")
+    if not all(m["grad_norm"] > 0 for m in metrics):
+        raise AssertionError(f"training: grad_norm 0: {metrics}")
+    if not all(share > 0 for share in moved.values()):
+        raise AssertionError(f"training: a model did not move: {moved}")
+    if any(launches.values()):
+        raise AssertionError(f"training launched attention kernels: "
+                             f"{launches}")
+
+    tr.cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, remat=True))
+    torch.cuda.reset_peak_memory_stats()
+    remat_ms, remat_m = step()
+    remat_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tr.cfg = cfg
+    if not all(math.isfinite(v) for v in remat_m.values()):
+        raise AssertionError(f"training with remat: {remat_m}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms, _ = step()
+    wall_ms = float(np.median([ms for ms, _ in steps]))
+    emit({"phase": "training", "batch": TRAIN_BATCH, "T": MAIN_T,
+          "setup_s": setup_s, "warmup_ms": warm_ms,
+          "ms_per_step": [ms for ms, _ in steps],
+          "median_ms_per_step": wall_ms, "metrics": metrics,
+          "peak_memory_gb": peak_gb, "remat_ms": remat_ms,
+          "remat_peak_memory_gb": remat_peak_gb, "remat_metrics": remat_m,
+          "moved_share": moved, "kernels": launches, "card": card})
+    emit({"phase": "training_profile", "profiled_ms": profiled_ms,
+          **device_breakdown(prof, wall_ms), "card": card})
+    return launches
+
+
+def golden_train_step(device="cuda"):
+    """The port's ``compute_grads`` on the golden JAX training step
+    (``TRAIN_FIXTURE``): returns the errors against JAX's values, and
+    raises when one is over its tolerance (the objective 1e-5 relative,
+    each partition's gradient norm 1e-4 relative, each kept gradient leaf
+    1e-4 of its largest magnitude)."""
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+    from vln_magic_tpu_torch.config import config_from_dict
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.utils.weights import load_trainer_params
+
+    fx = dict(np.load(TRAIN_FIXTURE))
+    spec = json.loads(str(fx["spec"]))
+    world = make_synthetic_world(**spec["world"])
+    items = make_synthetic_instructions(
+        world, rng=np.random.default_rng(spec["seed"]), **spec["items"])
+    tr = Trainer(config_from_dict(spec["config"]), world, device=device)
+    tree = lambda part: {k[len(part) + 1:]: v for k, v in fx.items()
+                         if k.startswith(part + "/")}
+    load_trainer_params(tr, tree("params"), tree("t_params"),
+                        tree("critic_params"))
+    loss, grads = tr.compute_grads(items, seed=spec["seed"])
+    want = float(fx["loss"])
+    errs = {"loss_rel": abs(loss.item() - want) / abs(want)}
+    # written "not <=" so that a NaN fails
+    bad = [f"objective {loss.item()} against {want}"] \
+        if not errs["loss_rel"] <= 1e-5 else []
+    for part, g in grads.items():
+        norm = math.sqrt(sum(float((x.double() ** 2).sum())
+                             for x in g.values()))
+        want = float(fx[f"grad_norm/{part}"])
+        errs[f"grad_norm_rel/{part}"] = abs(norm - want) / want
+        if not errs[f"grad_norm_rel/{part}"] <= 1e-4:
+            bad.append(f"{part} gradient norm {norm} against {want}")
+        for k, w in tree(f"grad/{part}").items():
+            e = float(np.max(np.abs(g[k].cpu().numpy() - w))
+                      / np.max(np.abs(w)))
+            errs[f"leaf_rel/{part}/{k}"] = e
+            if not e <= 1e-4:
+                bad.append(f"{part} {k}: {e} of its largest")
+    if bad:
+        raise AssertionError("golden training step: " + "; ".join(bad))
+    return errs
+
+
+def phase_golden_train(card):
+    """Phase 9: the JAX golden training step in f32, TF32 off."""
+    errs = golden_train_step()
+    emit({"phase": "golden_train", "fixture": os.path.relpath(
+        TRAIN_FIXTURE, ROOT), "errors": errs,
+          "max_leaf_rel": max(v for k, v in errs.items()
+                              if k.startswith("leaf")),
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "card": card})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -766,6 +995,8 @@ def main():
     stream_launches = phase_streaming(card, nav)
     parity_launches = phase_parity(card, nav, items)
     fused = phase_fused(card)
+    train_launches = phase_training(card, nav.world)
+    phase_golden_train(card)
     by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     emit({"kernels": [{
         "name": "packed_attention", "route": "cuda",
@@ -779,7 +1010,9 @@ def main():
         "exact_limit_used": packed["exact_limit_used"],
         "launches_by_path": {"wave": wave_launches,
                              "stream": stream_launches,
-                             "parity": parity_launches},
+                             "parity": parity_launches,
+                             "train_step": train_launches[
+                                 "packed_attention"]},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
                           "parity": "tensor_core", "golden_f32": "simt"},
         "per": "one wave of the main path (216 launches, bf16, tensor-core "
@@ -796,9 +1029,11 @@ def main():
         "exact_limit_used": fused["exact_limit_used"],
         "tc_launches": fused["tc_launches"],
         "route_by_path": {"entry_point": "tensor_core", "f32": "simt"},
+        "launches_by_path": {"entry_point": fused["launches"],
+                             "train_step": train_launches["fused_attention"]},
         "per": "its entry point once at each of the six MAGIC-S path "
                "shapes (6 launches, bf16, tensor-core route); no model path "
-               "calls it"}]})
+               "calls it, the train step included"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -26,16 +26,6 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _busy_us(intervals):
-    """Length of the union of [start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
@@ -70,7 +60,7 @@ def main():
         by_name[e.name][1] += dur
         intervals.append((e.time_range.start, e.time_range.end))
     device_us = sum(v[1] for v in by_name.values())
-    busy_us = _busy_us(intervals)
+    busy_us = chip_smoke._busy_us(intervals)
     attn_us = sum(v[1] for k, v in by_name.items()   # both routes
                   if "packed_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]

@@ -218,7 +218,7 @@ def test_reference_checkpoint_container_round_trip(tmp_path):
         want["params.global_encoder.layer_0.crossattention.query.kernel"].T)
 
 
-@pytest.mark.parametrize("flag", ["do_back_txt", "do_front_img", "kd_heads",
+@pytest.mark.parametrize("flag", ["do_back_txt", "do_front_img", "do_back_img",
                                   "fuse_branches"])
 def test_unported_configurations_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):

@@ -273,9 +273,10 @@ def test_one_wave_calls_packed_attention_216_times_at_full_depth(monkeypatch):
 
 
 def test_unported_paths_raise(world, golden_params):
-    """Parity mode and streaming are ported and run (tests/test_torch_parity.py
-    and tests/test_torch_streaming.py pin them); sampled feedback and MC
-    ensembles still raise."""
+    """Parity mode, streaming and sampled feedback are ported and run
+    (tests/test_torch_parity.py, tests/test_torch_streaming.py and
+    tests/test_torch_train_rollout.py pin them); MC ensembles and the fused
+    teacher+<mode> rollout still raise."""
     cfg = golden_cfg(tcfg)
     parity = dataclasses.replace(
         cfg, env=dataclasses.replace(cfg.env, observed_graph_parity=True))
@@ -286,8 +287,10 @@ def test_unported_paths_raise(world, golden_params):
     nav = Navigator(cfg, world, params=golden_params, device="cpu")
     (avg, _), preds = nav.evaluate(items, batch_size=4, stream=True)
     assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
-    with pytest.raises(NotImplementedError, match="sample"):
-        nav.evaluate(items, feedback="sample")
+    (avg, _), preds = nav.evaluate(items, feedback="sample")
+    assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
+    with pytest.raises(NotImplementedError, match="fused_split"):
+        nav.evaluate(items, feedback="teacher+sample")
     with pytest.raises(NotImplementedError, match="ensemble"):
         nav.evaluate(items, ensemble_n=2)
 

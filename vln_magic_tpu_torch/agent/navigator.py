@@ -33,7 +33,8 @@ def pad_instructions(items, max_len: int, pad_id: int = 1):
 
 
 def episodes_from_items(tables: Tables, items, hidden_size: int,
-                        max_gt_len: int = 24, observed_parity: bool = False):
+                        max_gt_len: int = 24, observed_parity: bool = False,
+                        teacher_size: int | None = None):
     b = len(items)
     scan = np.array([it["scan_idx"] for it in items], np.int64)
     start = np.array([it["path_idx"][0] for it in items], np.int64)
@@ -45,7 +46,8 @@ def episodes_from_items(tables: Tables, items, hidden_size: int,
         gt_path[i, : len(p)] = p
         gt_len[i] = len(p)
     return init_episodes(tables, scan, start, heading, gt_path, gt_len,
-                         hidden_size, observed_parity=observed_parity)
+                         hidden_size, observed_parity=observed_parity,
+                         teacher_size=teacher_size)
 
 
 class Navigator:

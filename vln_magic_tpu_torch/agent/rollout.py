@@ -1,13 +1,23 @@
-"""Batched greedy navigation rollout over padded world tables.
+"""Batched navigation rollout over padded world tables.
 
-Port of ``vln_magic_tpu/agent/rollout.py`` for greedy evaluation: the
-episode state (current node, orientation, and the topological map:
-visited/observed sets, observation order, averaged node embeddings, stop
-scores) is a set of padded tensors, and the time loop runs all
-``max_action_len`` steps, masking episodes that have ended, as the
-reference's ``lax.scan`` does.  One step is ``Rollout.step``, which takes
-per-lane step clocks, so the wave loop (``run``) and the streaming decoder
-(``agent/streaming.py``) share it.
+Port of ``vln_magic_tpu/agent/rollout.py``: the episode state (current
+node, orientation, and the topological map: visited/observed sets,
+observation order, averaged node embeddings, stop scores) is a set of
+padded tensors, and the time loop runs all ``max_action_len`` steps,
+masking episodes that have ended, as the reference's ``lax.scan`` does.
+
+Two loops share the step's parts.  Evaluation (``Rollout.run`` with the
+defaults) decodes without autograd and updates the state in place; one
+step is ``Rollout.step``, which takes per-lane step clocks, so the wave loop
+and the streaming decoder (``agent/streaming.py``) share it.  Training
+(``Rollout.run`` with ``train_ml``, ``distill`` or ``deterministic=False``)
+runs the student and, for distillation, the teacher in the same step, and
+accumulates the imitation (CE) and MAKD losses.  Its step copies the state
+fields it writes before writing them, so autograd, which carries gradients
+from step to step through the node embeddings and [MEM], never sees a saved
+tensor change, and ``torch.utils.checkpoint`` can recompute a step from an
+input nothing has mutated since.  Draws (dropout, sampled actions, MKRW)
+come from a ``torch.Generator`` made per step from the run's seed.
 
 Two graph-information modes, as in the reference: the default reads
 gmap distances and paths from the full-graph tables; with
@@ -32,13 +42,18 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import EnvConfig, ModelConfig
 from ..env.world import WorldTables
 from ..utils.device import resolve_device
+from . import distill as D
 from . import geometry as geo
+from . import losses as L
 
 BIG = 1_000_000       # obs-order offset separating frontier from visited
 UNOBS = 2_000_000     # obs-order value for unobserved nodes
@@ -111,18 +126,43 @@ class EpisodeBatch:
     obs_dist: torch.Tensor      # [B, N, N] f32
     obs_steps: torch.Tensor     # [B, N, N] f32
     ended: torch.Tensor         # [B] bool
+    # the teacher's node embeddings and [MEM] (distillation), else None
+    t_embed_sum: torch.Tensor | None = None   # [B, N+1, DT] f32
+    t_embed_cnt: torch.Tensor | None = None   # [B, N+1] f32
+    t_mem: torch.Tensor | None = None         # [B, DT] f32
 
     @property
     def batch_size(self) -> int:
         return self.scan.shape[0]
 
+    def copy_for_step(self) -> "EpisodeBatch":
+        """A state whose fields that a step writes in place are copies
+        (the others are replaced, never written)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).clone() for f in _WRITTEN_IN_PLACE
+            if getattr(self, f) is not None})
+
+
+# fields a step updates in place: the step-id stamp, the node embeddings,
+# the observation order, the stop scores, visits and the trajectory record
+_WRITTEN_IN_PLACE = ("step_ids", "embed_sum", "embed_cnt", "t_embed_sum",
+                     "t_embed_cnt", "obs_order", "stop_scores", "visited",
+                     "traj_nodes")
+ROLE_PREFIX = {"student": "", "teacher": "t_"}
+
+
+def _role(state: EpisodeBatch, role: str, name: str):
+    return getattr(state, ROLE_PREFIX[role] + name)
+
 
 def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
-                  hidden_size: int,
-                  observed_parity: bool = False) -> EpisodeBatch:
+                  hidden_size: int, observed_parity: bool = False,
+                  teacher_size: int | None = None) -> EpisodeBatch:
     """Agent at gt_path[0] with the item's heading, elevation 0; the start
     node is visited and it and its candidates are observed.  Inputs may be
-    numpy arrays or tensors on the tables' device."""
+    numpy arrays or tensors on the tables' device.  ``teacher_size``: the
+    teacher's hidden size, for the teacher's node embeddings and [MEM]
+    (distillation); None for none."""
     dev = tables.dist.device
     i64 = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)
     scan, start = i64(scan_idx), i64(start)
@@ -155,6 +195,10 @@ def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
         mem=zeros(b, hidden_size), traj_nodes=traj_nodes,
         traj_len=torch.ones(b, dtype=torch.int64, device=dev),
         obs_dist=apsp0, obs_steps=apsp0, ended=zeros(b, dtype=torch.bool))
+    if teacher_size is not None:
+        state.t_embed_sum = zeros(b, n1, teacher_size)
+        state.t_embed_cnt = zeros(b, n1)
+        state.t_mem = zeros(b, teacher_size)
     # the start node carries step id 1 from the outset and is visited
     state.step_ids[bi, start] = 1
     state.visited[bi, start] = True
@@ -240,18 +284,21 @@ def _take(x, idx):
 
 
 class Rollout:
-    """Greedy rollout bound to world tables, env config and a model.  It
-    runs on the device that ``Tables.from_world`` put the tables on, which
-    must be the model's."""
+    """Rollout bound to world tables, env config, a model and, for
+    distillation, a teacher model.  It runs on the device that
+    ``Tables.from_world`` put the tables on, which must be the models'."""
 
-    def __init__(self, tables: Tables, env_cfg: EnvConfig, model):
-        model_dev = next(model.parameters()).device
-        if model_dev != tables.dist.device:
-            raise ValueError(f"model on {model_dev}, tables on "
-                             f"{tables.dist.device}")
+    def __init__(self, tables: Tables, env_cfg: EnvConfig, model,
+                 teacher_model=None):
+        for m in (model, teacher_model):
+            model_dev = None if m is None else next(m.parameters()).device
+            if m is not None and model_dev != tables.dist.device:
+                raise ValueError(f"model on {model_dev}, tables on "
+                                 f"{tables.dist.device}")
         self.t = tables
         self.env = env_cfg
         self.model = model
+        self.teacher_model = teacher_model
         self.cfg: ModelConfig = model.cfg
         self.parity = env_cfg.observed_graph_parity
         self.policy_key = {"dynamic": "fused_logits", "avg": "fused_logits",
@@ -291,33 +338,40 @@ class Rollout:
         }
 
     def update_node_embeds(self, state: EpisodeBatch, pano_embeds, pano_fused,
-                           cand_ids, cand_mask) -> None:
+                           cand_ids, cand_mask, role="student") -> None:
         """Rewrite the current node with the fused pano embedding and add
-        candidate-view embeddings into unvisited nodes (averaged on read)."""
+        candidate-view embeddings into unvisited nodes (averaged on read),
+        in ``role``'s node embeddings."""
         b = state.batch_size
         bi = torch.arange(b, device=cand_ids.device)
         live = ~state.ended
+        embed_sum = _role(state, role, "embed_sum")
+        embed_cnt = _role(state, role, "embed_cnt")
         cur_t = torch.where(live, state.cur, self.t.num_nodes)
-        state.embed_sum[bi, cur_t] = pano_fused
-        state.embed_cnt[bi, cur_t] = 1.0
+        embed_sum[bi, cur_t] = pano_fused
+        embed_cnt[bi, cur_t] = 1.0
         idx = cand_ids.clamp(min=0)
         upd = cand_mask & ~state.visited.gather(1, idx) & live[:, None]
         rows = bi[:, None].expand_as(idx)
         w = upd.float()
         cand_emb = pano_embeds[:, : idx.shape[1]] * w[..., None]
-        state.embed_sum.index_put_((rows, idx), cand_emb, accumulate=True)
-        state.embed_cnt.index_put_((rows, idx), w, accumulate=True)
+        embed_sum.index_put_((rows, idx), cand_emb, accumulate=True)
+        embed_cnt.index_put_((rows, idx), w, accumulate=True)
 
-    def assemble_gmap(self, state: EpisodeBatch, base: dict) -> dict:
-        """Token structure (``base``) + node embeddings and [MEM]."""
+    def assemble_gmap(self, state: EpisodeBatch, base: dict,
+                      role="student") -> dict:
+        """Token structure (``base``) + ``role``'s node embeddings and
+        [MEM]."""
         n = self.t.num_nodes
         b = state.batch_size
-        node_embed = (state.embed_sum[:, :n]
-                      / state.embed_cnt[:, :n].clamp(min=1.0)[..., None])
+        node_embed = (_role(state, role, "embed_sum")[:, :n]
+                      / _role(state, role, "embed_cnt")[:, :n]
+                      .clamp(min=1.0)[..., None])
         tok = _take(node_embed, base["token_node"])
         tok = tok * base["token_valid"][..., None]
         zero = tok.new_zeros((b, 1, tok.shape[-1]))
-        img = torch.cat([zero, state.mem[:, None, :], tok], dim=1)
+        mem = _role(state, role, "mem")
+        img = torch.cat([zero, mem[:, None, :], tok], dim=1)
         return {**base, "gmap_img_embeds": img}
 
     def _cur_rows(self, state: EpisodeBatch):
@@ -397,10 +451,12 @@ class Rollout:
             "token_valid": token_valid, "no_vp_left": no_vp_left,
         }
 
-    def assemble_vp(self, state: EpisodeBatch, pano_embeds, base: dict) -> dict:
+    def assemble_vp(self, state: EpisodeBatch, pano_embeds, base: dict,
+                    role="student") -> dict:
         b = state.batch_size
         d = pano_embeds.shape[-1]
-        img = torch.cat([state.mem.new_zeros((b, 1, d)), state.mem[:, None, :],
+        mem = _role(state, role, "mem")
+        img = torch.cat([mem.new_zeros((b, 1, d)), mem[:, None, :],
                          pano_embeds.float()], dim=1)
         return {**base, "vp_img_embeds": img}
 
@@ -457,14 +513,77 @@ class Rollout:
             "vp_cand_visited": vp_cand_visited,
         }
 
+    # ---- supervision and action choice --------------------------------
+
+    def teacher_action(self, state: EpisodeBatch, gmap: dict, t_step: int,
+                       imitation: bool, ep: dict):
+        """The supervision target in the gmap action space (the reference's
+        ``_teacher_action``): with ``imitation``, the ground-truth next hop
+        at step ``t_step`` (0 past the path's end; ``ignore_id`` when the
+        token budget truncated it away); otherwise the DAgger ``spl``
+        expert, the unvisited token minimising dist(cur, node) +
+        dist(node, goal), or stop at the goal.  Ended rows get
+        ``ignore_id``."""
+        env = self.env
+        b = state.batch_size
+        bi = torch.arange(b, device=state.cur.device)
+        token_node = gmap["token_node"]
+        if imitation:
+            tt = (state.gt_len - 1).clamp(max=t_step + 1)
+            goal_vp = state.gt_path[bi, tt]
+            eq = (token_node == goal_vp[:, None]) & gmap["token_valid"]
+            idx = 2 + eq.int().argmax(dim=1)
+            a = torch.where(t_step >= state.gt_len - 1, 0,
+                            torch.where(eq.any(dim=1), idx, env.ignore_id))
+        else:
+            if env.expert_policy != "spl":
+                raise NotImplementedError(
+                    f"expert_policy={env.expert_policy!r} is not ported to "
+                    "vln_magic_tpu_torch yet (see ROADMAP.md)")
+            n = self.t.num_nodes
+            dist = ep["dist_f"]
+            visited_tok = state.visited[:, :n].gather(1, token_node)
+            eligible = gmap["token_valid"] & ~visited_tok
+            d_cur = dist[bi, state.cur].gather(1, token_node)
+            d_goal = dist[bi[:, None], token_node, state.goal[:, None]]
+            cost = torch.where(eligible, d_cur + d_goal, math.inf)
+            a = torch.where(state.cur == state.goal, 0,
+                            2 + cost.argmin(dim=1))
+        return torch.where(state.ended, env.ignore_id, a)
+
+    def select_action(self, logits, feedback: str, generator, nav_targets,
+                      gmap: dict):
+        """The action per feedback mode: ``teacher`` takes the target,
+        ``argmax`` the best logit, ``sample`` a draw from softmax(logits)
+        (the Gumbel-max trick), ``expl_sample`` the best logit or, with
+        probability 1 - ``expl_max_ratio``, a uniform draw among the
+        selectable tokens.  Draws come from ``generator``."""
+        if feedback == "teacher":
+            return nav_targets.clamp(min=0)     # ignore_id rows have ended
+        if feedback == "argmax":
+            return logits.argmax(dim=-1)
+        rand = lambda shape: torch.rand(shape, generator=generator,
+                                        device=logits.device)
+        if feedback == "sample":
+            gumbel = -torch.log(-torch.log(rand(logits.shape)))
+            return (logits.float() + gumbel).argmax(dim=-1)
+        if feedback == "expl_sample":
+            a = logits.argmax(dim=-1)
+            explore = rand(a.shape) > self.env.expl_max_ratio
+            mask = gmap["gmap_masks"] & ~gmap["gmap_visited_masks"]
+            rand_a = torch.where(mask, rand(mask.shape), -1.0).argmax(dim=-1)
+            return torch.where(explore, rand_a, a)
+        raise ValueError(f"invalid feedback {feedback!r}")
+
     # ---- transition -----------------------------------------------------
 
     def transition(self, state: EpisodeBatch, gmap: dict, action, stop_prob,
                    t_step, pano: dict, ep: dict,
-                   local_actions: bool = False):
-        """Greedy (argmax) transition: record the stop probability, end
-        episodes that stop, run out of frontier or of steps, and jump the
-        rest to their target, facing along the last edge walked.  ``t_step``
+                   local_actions: bool = False, feedback: str = "argmax"):
+        """Record the stop probability, end episodes that stop, run out of
+        frontier or of steps, and jump the rest to their target, facing
+        along the last edge walked.  An episode stops on action 0 and, with
+        ``teacher`` or ``sample`` feedback, also at its goal.  ``t_step``
         is the step index, an int or a [B] tensor of per-lane clocks.
         Returns the chosen target per row (-1 when not moving)."""
         t = self.t
@@ -478,7 +597,10 @@ class Rollout:
         state.stop_scores[bi, cur_t] = torch.where(
             live, stop_prob, state.stop_scores[bi, cur_t])
 
-        just_ended = live & ((action == 0) | gmap["no_vp_left"]
+        wants_stop = action == 0
+        if feedback in ("teacher", "sample"):
+            wants_stop = wants_stop | (state.cur == state.goal)
+        just_ended = live & (wants_stop | gmap["no_vp_left"]
                              | (t_step == self.env.max_action_len - 1))
         moving = live & ~just_ended
 
@@ -600,35 +722,40 @@ class Rollout:
             ep["nh"] = t.next_hop[state.scan]
         return ep
 
-    def step(self, state: EpisodeBatch, ep: dict, txt_embeds, txt_masks,
-             txt_kv, lane_t):
-        """One greedy step of every lane (state updated in place).
-        ``lane_t``: the step index, an int, or a [B] tensor of per-lane
-        clocks (streaming), wherever it has per-episode meaning: the step-id
-        stamp and the forced stop at ``max_action_len - 1``.
+    def _generator(self, seed: int, step: int) -> torch.Generator:
+        """The draws of step ``step`` (-1: the instruction encoding) of a run
+        seeded ``seed``: a generator on the tables' device seeded from both,
+        so a step recomputed under checkpointing draws the same again."""
+        gen = torch.Generator(device=self.t.dist.device)
+        gen.manual_seed((seed * 1_000_003 + step + 1) % 2 ** 63)
+        return gen
 
-        Returns (chosen target per lane, -1 when not moving; lanes live at
-        the top of the step; lanes that ended in it)."""
-        model = self.model
+    def _stamp(self, state: EpisodeBatch, lane_t):
+        """Stamp the current node's step id before any forward; returns the
+        lanes live at the top of the step."""
         bi = torch.arange(state.batch_size, device=state.cur.device)
         trash = self.t.num_nodes
-        # stamp the current node's step id before any forward
         live0 = ~state.ended
         state.step_ids[bi, torch.where(live0, state.cur, trash)] = \
             torch.where(live0, lane_t + 1, state.step_ids[:, trash])
-        pano = self.assemble_pano(state)
-        gmap_base = self.assemble_gmap_base(state, ep)
-        vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
+        return live0
 
-        pano_embeds, pano_fused, _ = model.panorama(
+    def _model_step(self, model, role, state: EpisodeBatch, pano, gmap_base,
+                    vp_base, txt_embeds, txt_masks, txt_kv,
+                    deterministic=True, generator=None):
+        """One model's part of a step: panorama forward, ``role``'s node
+        embedding update, gmap/vp assembly, navigation forward and [MEM].
+        Returns (gmap, outs); ``outs`` also carries the panorama outputs."""
+        drop = {"deterministic": deterministic, "generator": generator}
+        pano_embeds, pano_fused, img_attns = model.panorama(
             pano["view_img_fts"], pano["loc_fts"], pano["nav_types"],
-            pano["pano_masks"])
+            pano["pano_masks"], **drop)
         # the episode state stays f32 whatever the model's dtype
         self.update_node_embeds(state, pano_embeds.float(),
                                 pano_fused.float(), pano["cand_ids"],
-                                pano["cand_mask"])
-        gmap = self.assemble_gmap(state, gmap_base)
-        vp = self.assemble_vp(state, pano_embeds, vp_base)
+                                pano["cand_mask"], role)
+        gmap = self.assemble_gmap(state, gmap_base, role)
+        vp = self.assemble_vp(state, pano_embeds, vp_base, role)
         outs = model.navigation(
             txt_embeds, txt_masks, gmap["gmap_img_embeds"],
             gmap["gmap_step_ids"], gmap["gmap_pos_fts"],
@@ -636,43 +763,105 @@ class Rollout:
             gmap["gmap_pair_dists"], vp["vp_img_embeds"],
             vp["vp_pos_fts"], vp["vp_masks"], vp["vp_nav_masks"],
             vp["gmap_local_slot"], vp["vp_cand_visited"],
-            txt_cross_kvs=txt_kv)
-        state.mem = outs["cls_embeds"].float()
+            txt_cross_kvs=txt_kv, **drop)
+        setattr(state, ROLE_PREFIX[role] + "mem", outs["cls_embeds"].float())
+        outs.update({"pano_embeds": pano_embeds,
+                     "pano_fused_embeds": pano_fused, "img_attns": img_attns})
+        return gmap, outs
 
+    def step(self, state: EpisodeBatch, ep: dict, txt_embeds, txt_masks,
+             txt_kv, lane_t, feedback: str = "argmax", generator=None):
+        """One evaluation step of every lane (state updated in place).
+        ``lane_t``: the step index, an int, or a [B] tensor of per-lane
+        clocks (streaming, argmax only), wherever it has per-episode
+        meaning: the step-id stamp and the forced stop at
+        ``max_action_len - 1``.  ``generator``: the draws of ``sample`` and
+        ``expl_sample`` feedback.
+
+        Returns (chosen target per lane, -1 when not moving; lanes live at
+        the top of the step; lanes that ended in it)."""
+        live0 = self._stamp(state, lane_t)
+        pano = self.assemble_pano(state)
+        gmap_base = self.assemble_gmap_base(state, ep)
+        vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
+        gmap, outs = self._model_step(self.model, "student", state, pano,
+                                      gmap_base, vp_base, txt_embeds,
+                                      txt_masks, txt_kv)
         logits = outs[self.policy_key]
-        action = logits.argmax(dim=-1)
+        targets = (self.teacher_action(state, gmap, lane_t, True, ep)
+                   if feedback == "teacher" else None)
+        action = self.select_action(logits, feedback, generator, targets,
+                                    gmap)
         stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
         chosen = self.transition(state, gmap, action, stop_prob, lane_t, pano,
-                                 ep, self.local_acts)
+                                 ep, self.local_acts, feedback)
         return chosen, live0, state.ended & live0
 
-    @torch.no_grad()
     def run(self, state: EpisodeBatch, txt_ids, txt_masks,
-            feedback: str = "argmax", ensemble_n: int = 1):
-        """Greedy decode of every episode in ``state`` (updated in place).
+            feedback: str = "argmax", ensemble_n: int = 1, *, seed: int = 0,
+            train_ml: float | None = None, deterministic: bool = True,
+            distill=None, use_teacher_policy: bool = False,
+            remat: bool = False):
+        """Every episode in ``state`` for ``max_action_len`` steps.
+
+        ``feedback``: ``argmax``, ``sample``, ``expl_sample`` or
+        ``teacher``; ``seed`` seeds the run's draws.  With the defaults
+        this decodes (evaluation): no autograd, ``state`` updated in place.
+        With ``train_ml`` (supervision: the CE of each step against
+        ``teacher_action``, imitation under ``teacher`` feedback, else the
+        ``spl`` expert), ``distill`` (a ``DistillConfig``: MAKD losses
+        against the teacher model, the teacher's own CE, and with
+        ``train_teacher`` the reverse ICoD losses) or
+        ``deterministic=False`` (dropout on), it is a training rollout
+        that records autograd's graph and leaves ``state`` as it was;
+        ``remat`` recomputes each step in the backward pass
+        (``torch.utils.checkpoint``) instead of keeping its activations;
+        ``use_teacher_policy`` acts on the teacher's logits.
 
         Returns aux: ``actions`` [T, B] chosen targets (-1 when not
         moving), ``stop_node``, ``final_cur``, ``semantic_steps`` (episodes
         live at the top of each step, summed), ``gmap_overflow`` and, in
         parity mode, the expanded trajectory ``traj_nodes``/``traj_len``
-        with the backtrack appended."""
-        if feedback != "argmax":
-            raise NotImplementedError(
-                f"feedback={feedback!r}: only greedy argmax decoding is "
-                "ported to vln_magic_tpu_torch yet (see ROADMAP.md)")
+        with the backtrack appended; a training rollout adds the summed
+        CE ``ml_loss`` and, with ``distill``, ``t_ml_loss`` (the teacher's
+        CE), ``kd_losses`` and ``t_kd_losses`` (dicts over
+        ``distill.KD_LOSS_NAMES``, zeros without ICoD)."""
         if ensemble_n != 1:
-            raise NotImplementedError("ensemble_n > 1 is not ported yet")
+            raise NotImplementedError("ensemble_n > 1 is not ported yet "
+                                      "(see ROADMAP.md)")
+        if "+" in feedback:
+            raise NotImplementedError(
+                f"feedback={feedback!r}: the fused teacher+<mode> rollout "
+                "(fused_split) is not ported yet (see ROADMAP.md)")
+        if feedback not in ("argmax", "sample", "expl_sample", "teacher"):
+            raise ValueError(f"invalid feedback {feedback!r}")
+        if feedback != "argmax" and self.local_acts:
+            raise NotImplementedError(
+                "fusion='local' with feedback other than argmax is not "
+                "ported yet (see ROADMAP.md)")
+        if train_ml is None and distill is None and deterministic:
+            return self._decode(state, txt_ids, txt_masks, feedback, seed)
+        return self._run_train(state, txt_ids, txt_masks, feedback, seed,
+                               train_ml, deterministic, distill,
+                               use_teacher_policy, remat)
+
+    @torch.no_grad()
+    def _decode(self, state, txt_ids, txt_masks, feedback, seed):
         txt_embeds, _ = self.model.language(txt_ids, txt_masks)
         txt_kv = self.model.text_cross_kv(txt_embeds) \
             if self.cfg.hoist_text_kv else None
         ep = self.episode_tables(state)
+        draws = feedback in ("sample", "expl_sample")
         actions, live_n = [], []
         for t_step in range(self.env.max_action_len):
+            gen = self._generator(seed, t_step) if draws else None
             chosen, live0, _ = self.step(state, ep, txt_embeds, txt_masks,
-                                         txt_kv, t_step)
+                                         txt_kv, t_step, feedback, gen)
             actions.append(chosen)
             live_n.append(live0.sum())
+        return self._aux(state, actions, live_n)
 
+    def _aux(self, state, actions, live_n) -> dict:
         aux = {
             "actions": torch.stack(actions),
             "stop_node": self.final_stop_node(state),
@@ -685,6 +874,136 @@ class Rollout:
             aux["traj_nodes"], aux["traj_len"] = self.record_backtrack(
                 state, aux["stop_node"])
         return aux
+
+    def _run_train(self, state, txt_ids, txt_masks, feedback, seed, train_ml,
+                   deterministic, distill, use_teacher_policy, remat):
+        if self.local_acts:
+            raise NotImplementedError("fusion='local' in training is not "
+                                      "ported yet (see ROADMAP.md)")
+        model, teacher = self.model, self.teacher_model
+        kdl = distill is not None and teacher is not None
+        awt = (distill.adaptive_ability_weight_type
+               if kdl and distill.adaptive_ability_weight else None)
+        if awt not in (None, "RW", "learned_weight"):
+            raise NotImplementedError(
+                f"adaptive_ability_weight_type={awt!r} is not ported to "
+                "vln_magic_tpu_torch yet (see ROADMAP.md)")
+        if kdl and state.t_mem is None:
+            raise ValueError("distillation needs the teacher's episode "
+                             "state: build it with teacher_size")
+        drop = {"deterministic": deterministic,
+                "generator": self._generator(seed, -1)}
+        c = SimpleNamespace(
+            feedback=feedback, train_ml=train_ml, drop_off=deterministic,
+            kdl=kdl, distill=distill, use_teacher_policy=use_teacher_policy,
+            icod=kdl and distill.train_teacher,
+            mktd=kdl and distill.teacher_sample_hard_mining,
+            rw=awt == "RW", s_learned=None, t_learned=None,
+            txt_masks=txt_masks, ep=self.episode_tables(state))
+        c.txt, c.txt_attns = model.language(txt_ids, txt_masks, **drop)
+        c.txt_kv = (model.text_cross_kv(c.txt) if self.cfg.hoist_text_kv
+                    else None)
+        if kdl:
+            c.t_txt, c.t_txt_attns = teacher.language(txt_ids, txt_masks,
+                                                      **drop)
+            c.t_txt_kv = (teacher.text_cross_kv(c.t_txt)
+                          if teacher.cfg.hoist_text_kv else None)
+            if awt == "learned_weight":
+                c.s_learned = model.kd_ability_weights()
+                if c.icod:
+                    c.t_learned = teacher.kd_ability_weights()
+
+        dev = state.cur.device
+        ml = t_ml = torch.zeros((), device=dev)
+        kd, t_kd = D.zero_kd_losses(dev), D.zero_kd_losses(dev)
+        actions, live_n = [], []
+        for t_step in range(self.env.max_action_len):
+            if remat:
+                # the step draws from its own generator only, so the
+                # default generators' states need no saving
+                out = checkpoint(self._train_step, state, t_step, seed, c,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                out = self._train_step(state, t_step, seed, c)
+            state, chosen, live0, step_ml, step_t_ml, step_kd, step_t_kd = out
+            ml, t_ml = ml + step_ml, t_ml + step_t_ml
+            if step_kd is not None:
+                kd = D.add_losses(kd, step_kd)
+            if step_t_kd is not None:
+                t_kd = D.add_losses(t_kd, step_t_kd)
+            actions.append(chosen)
+            live_n.append(live0.sum())
+        aux = self._aux(state, actions, live_n)
+        aux.update({"ml_loss": ml, "t_ml_loss": t_ml, "kd_losses": kd,
+                    "t_kd_losses": t_kd})
+        return aux
+
+    def _train_step(self, state: EpisodeBatch, t_step: int, seed: int, c):
+        """One training step on a copy of ``state``: both models' forwards
+        on the shared token structure, the step's CE, the teacher's CE into
+        MKTD weights, one MKRW draw, the MAKD losses (gated on any episode
+        being live, as the reference leaves its loop once all have ended),
+        the action and the transition.  Returns (state, chosen, live0, CE,
+        teacher CE, t2s KD dict or None, s2t KD dict or None)."""
+        state = state.copy_for_step()
+        gen = self._generator(seed, t_step)
+        drop = {"deterministic": c.drop_off, "generator": gen}
+        env = self.env
+        live0 = self._stamp(state, t_step)
+        pano = self.assemble_pano(state)
+        gmap_base = self.assemble_gmap_base(state, c.ep)
+        vp_base = self.assemble_vp_base(state, pano, gmap_base, c.ep)
+        gmap, outs = self._model_step(self.model, "student", state, pano,
+                                      gmap_base, vp_base, c.txt, c.txt_masks,
+                                      c.txt_kv, **drop)
+        outs["txt_embeds"], outs["txt_attns"] = c.txt, c.txt_attns
+        logits = outs[self.policy_key]
+        if c.kdl:
+            _, t_outs = self._model_step(
+                self.teacher_model, "teacher", state, pano, gmap_base,
+                vp_base, c.t_txt, c.txt_masks, c.t_txt_kv, **drop)
+            t_outs["txt_embeds"], t_outs["txt_attns"] = c.t_txt, c.t_txt_attns
+            t_logits = t_outs[self.policy_key]
+
+        ml = t_ml = torch.zeros((), device=logits.device)
+        targets = kd = t_kd = None
+        if c.train_ml is not None or c.feedback == "teacher":
+            targets = self.teacher_action(state, gmap, t_step,
+                                          c.feedback == "teacher", c.ep)
+            step_ce, _ = L.masked_softmax_ce(logits.float(), targets,
+                                             env.ignore_id)
+            ml = step_ce.sum()
+        if c.kdl and c.train_ml is not None:
+            d = c.distill
+            t_ce, _ = L.masked_softmax_ce(t_logits.float(), targets,
+                                          env.ignore_id)
+            t_ml = t_ce.sum()
+            t_sw = s_sw = None
+            if c.mktd:
+                t_sw = L.mktd_sample_weights(t_ce, d.sample_preprocess,
+                                             d.sample_exp_decay).detach()
+                s_sw = L.mktd_sample_weights(step_ce, d.sample_preprocess,
+                                             d.sample_exp_decay).detach()
+            ab_w = (L.mkrw_weights(gen, 5, d.rw_temp, logits.device)
+                    if c.rw else None)
+            gate = live0.any().float()
+            step_losses = lambda role, s_o, t_o, sw, learned: {
+                k: v * gate for k, v in D.makd_step_losses(
+                    d, t_step, s_o, t_o, self.model.kd_project, targets,
+                    ab_w, sw, learned, role=role,
+                    ignore_id=env.ignore_id).items()}
+            kd = step_losses("t2s", outs, t_outs, t_sw, c.s_learned)
+            if c.icod:
+                t_kd = step_losses("s2t", t_outs, outs, s_sw, c.t_learned)
+
+        policy = (t_logits if c.kdl and c.use_teacher_policy
+                  else logits).detach()
+        action = self.select_action(policy, c.feedback, gen, targets, gmap)
+        stop_prob = torch.softmax(policy.float(), dim=-1)[:, 0]
+        chosen = self.transition(state, gmap, action, stop_prob, t_step, pano,
+                                 c.ep, False, c.feedback)
+        return state, chosen, live0, ml, t_ml, kd, t_kd
 
 
 def _record_hop(nodes, ln, stepping, nxt):

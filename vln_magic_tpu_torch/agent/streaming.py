@@ -176,6 +176,8 @@ class StreamEval:
         fresh = self._episodes(banks, new_idx)
         for f in dataclasses.fields(EpisodeBatch):
             old = getattr(state, f.name)
+            if old is None:             # the teacher's fields: no teacher
+                continue
             setattr(state, f.name, torch.where(_bcast(refill, old),
                                                getattr(fresh, f.name), old))
         c["txt_kv"] = _map_kv(c["txt_kv"], lambda cur, bank: torch.where(

@@ -3,8 +3,14 @@
 Port of ``vln_magic_tpu/models/layers.py``.  Module attribute names
 dot-join to the flax param paths (``attention.query``, ``attention_norm.
 LayerNorm_0``, ...), so ``utils.weights.load_flax_params`` maps one onto
-the other.  The port is eval-only: there is no dropout, and every call is
-the reference's ``deterministic=True`` call.
+the other.
+
+Every layer takes the reference's ``deterministic`` switch.  A
+deterministic call (evaluation) applies no dropout; a training call
+(``deterministic=False``) drops attention probabilities, residual branches
+and embeddings as flax's ``nn.Dropout`` does, with masks drawn from the
+``torch.Generator`` the caller passes down (``None``: PyTorch's default
+generator).
 """
 
 from __future__ import annotations
@@ -20,6 +26,16 @@ from ..ops.attention import packed_attention
 NEG_INF = -1e9
 
 
+def dropout(x, rate: float, deterministic: bool, generator=None):
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``; the mask comes from ``generator``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        >= rate
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
+
+
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """[B, Lk] bool -> additive attention bias [B, 1, 1, Lk]."""
     bias = torch.zeros(mask.shape, dtype=dtype, device=mask.device)
@@ -31,19 +47,22 @@ class MultiHeadAttention(nn.Module):
     broadcasts against [B, H, Lq, Lk].  Returns (output, head-averaged
     probabilities [B, Lq, Lk]).
 
-    ``use_packed`` sends the call to ``ops.attention.packed_attention`` (the
-    reference's ``use_pallas`` path, layers.py:74-105): Q/K/V go in packed,
-    a [B|1, 1, 1, Lk] bias becomes the mask and any other bias a full
-    [B, H, Lq, Lk] sprel, and zeros stand in for the probabilities.
+    ``use_packed`` sends a deterministic call to
+    ``ops.attention.packed_attention`` (the reference's ``use_pallas`` path,
+    layers.py:74-105): Q/K/V go in packed, a [B|1, 1, 1, Lk] bias becomes
+    the mask and any other bias a full [B, H, Lq, Lk] sprel, and zeros stand
+    in for the probabilities.  A training call always takes the einsum path,
+    which drops probabilities and returns the map before dropout.
     """
 
     def __init__(self, hidden_size: int, num_heads: int,
                  use_packed: bool = False, softmax_in_dtype: bool = False,
-                 logits_f32: bool = False):
+                 logits_f32: bool = False, dropout: float = 0.0):
         super().__init__()
         self.h = num_heads
         self.hd = hidden_size // num_heads
         self.use_packed = use_packed
+        self.dropout = dropout
         self.softmax_in_dtype = softmax_in_dtype
         self.logits_f32 = logits_f32
         self.query = nn.Linear(hidden_size, hidden_size)
@@ -51,7 +70,8 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(hidden_size, hidden_size)
         self.out = nn.Linear(hidden_size, hidden_size)
 
-    def forward(self, q_input, kv_input, bias=None, precomputed_kv=None):
+    def forward(self, q_input, kv_input, bias=None, precomputed_kv=None,
+                deterministic=True, generator=None):
         h, hd = self.h, self.hd
         d = h * hd
         q = self.query(q_input)
@@ -64,7 +84,7 @@ class MultiHeadAttention(nn.Module):
         b, lq = q.shape[0], q.shape[1]
         lk = k.shape[1]
 
-        if self.use_packed:
+        if self.use_packed and deterministic:
             k = k.reshape(b, lk, d)
             v = v.reshape(b, lk, d)
             if bias is None:
@@ -99,16 +119,20 @@ class MultiHeadAttention(nn.Module):
                 probs = torch.softmax(scores, dim=-1)
             else:
                 probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, lq, d)
+        probs_drop = dropout(probs, self.dropout, deterministic, generator)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs_drop, v).reshape(b, lq, d)
         return self.out(ctx), probs.mean(dim=1)
 
 
 class AddNorm(nn.Module):
-    def __init__(self, hidden_size: int, eps: float = 1e-12):
+    def __init__(self, hidden_size: int, eps: float = 1e-12,
+                 dropout: float = 0.0):
         super().__init__()
         self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=eps)
+        self.dropout = dropout
 
-    def forward(self, residual, x):
+    def forward(self, residual, x, deterministic=True, generator=None):
+        x = dropout(x, self.dropout, deterministic, generator)
         return self.LayerNorm_0(residual + x)
 
 
@@ -130,7 +154,12 @@ class FeedForward(nn.Module):
 def _attention(cfg, packed: bool) -> MultiHeadAttention:
     return MultiHeadAttention(
         cfg.hidden_size, cfg.num_attention_heads, packed,
-        cfg.softmax_compute_dtype_attn, cfg.attn_logits_f32)
+        cfg.softmax_compute_dtype_attn, cfg.attn_logits_f32,
+        cfg.attention_dropout)
+
+
+def _add_norm(cfg) -> AddNorm:
+    return AddNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.hidden_dropout)
 
 
 class TransformerLayer(nn.Module):
@@ -138,21 +167,23 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.attention = _attention(cfg, cfg.use_pallas_attention)
-        self.attention_norm = AddNorm(d, eps)
-        self.ffn = FeedForward(d, cfg.intermediate_size, cfg.gelu_approximate)
-        self.ffn_norm = AddNorm(d, eps)
+        self.attention_norm = _add_norm(cfg)
+        self.ffn = FeedForward(cfg.hidden_size, cfg.intermediate_size,
+                               cfg.gelu_approximate)
+        self.ffn_norm = _add_norm(cfg)
 
-    def forward(self, x, mask=None, bias=None):
+    def forward(self, x, mask=None, bias=None, deterministic=True,
+                generator=None):
         attn_bias = None
         if mask is not None:
             attn_bias = mask_to_bias(mask, x.dtype)
         if bias is not None:
             attn_bias = bias if attn_bias is None else attn_bias + bias
-        attn_out, probs = self.attention(x, x, attn_bias)
-        x = self.attention_norm(x, attn_out)
-        x = self.ffn_norm(x, self.ffn(x))
+        drop = {"deterministic": deterministic, "generator": generator}
+        attn_out, probs = self.attention(x, x, attn_bias, **drop)
+        x = self.attention_norm(x, attn_out, **drop)
+        x = self.ffn_norm(x, self.ffn(x), **drop)
         return x, probs
 
 
@@ -163,33 +194,34 @@ class CrossModalLayer(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        d, eps = cfg.hidden_size, cfg.layer_norm_eps
         packed = cfg.use_pallas_attention
         self.lang2visn = cfg.use_lang2visn_attn
         self.crossattention = _attention(cfg, packed)
-        self.crossattention_norm = AddNorm(d, eps)
+        self.crossattention_norm = _add_norm(cfg)
         if self.lang2visn:
             self.lang2visn_attention = _attention(cfg, False)
-            self.lang2visn_norm = AddNorm(d, eps)
+            self.lang2visn_norm = _add_norm(cfg)
         self.self_attention = _attention(cfg, packed)
-        self.self_norm = AddNorm(d, eps)
-        self.ffn = FeedForward(d, cfg.intermediate_size, cfg.gelu_approximate)
-        self.ffn_norm = AddNorm(d, eps)
+        self.self_norm = _add_norm(cfg)
+        self.ffn = FeedForward(cfg.hidden_size, cfg.intermediate_size,
+                               cfg.gelu_approximate)
+        self.ffn_norm = _add_norm(cfg)
 
     def forward(self, visn, lang, visn_mask, lang_mask, self_bias=None,
-                cross_kv=None):
+                cross_kv=None, deterministic=True, generator=None):
+        drop = {"deterministic": deterministic, "generator": generator}
         lang_bias = mask_to_bias(lang_mask, visn.dtype)
         visn_bias = mask_to_bias(visn_mask, visn.dtype)
         x_out, x_probs = self.crossattention(visn, lang, lang_bias,
-                                             precomputed_kv=cross_kv)
-        visn = self.crossattention_norm(visn, x_out)
+                                             precomputed_kv=cross_kv, **drop)
+        visn = self.crossattention_norm(visn, x_out, **drop)
         if self.lang2visn:
-            l_out, _ = self.lang2visn_attention(lang, visn, visn_bias)
-            lang = self.lang2visn_norm(lang, l_out)
+            l_out, _ = self.lang2visn_attention(lang, visn, visn_bias, **drop)
+            lang = self.lang2visn_norm(lang, l_out, **drop)
         self_attn_bias = visn_bias
         if self_bias is not None:
             self_attn_bias = self_attn_bias + self_bias
-        s_out, _ = self.self_attention(visn, visn, self_attn_bias)
-        visn = self.self_norm(visn, s_out)
-        visn = self.ffn_norm(visn, self.ffn(visn))
+        s_out, _ = self.self_attention(visn, visn, self_attn_bias, **drop)
+        visn = self.self_norm(visn, s_out, **drop)
+        visn = self.ffn_norm(visn, self.ffn(visn), **drop)
         return visn, lang, x_probs

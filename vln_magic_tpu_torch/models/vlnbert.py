@@ -1,10 +1,18 @@
 """DualScaleVLNBert — the navigator model, in PyTorch.
 
-Port of ``vln_magic_tpu/models/vlnbert.py`` for the greedy evaluation path:
-the modes ``language``, ``panorama``, ``text_cross_kv`` and ``navigation``.
-The module tree dot-joins to the flax param paths.  Parameters live in the
-compute dtype; every mode casts its float inputs to it, as flax's Dense
-layers do with their inputs.
+Port of ``vln_magic_tpu/models/vlnbert.py``: the modes ``language``,
+``panorama``, ``text_cross_kv`` and ``navigation``, the knowledge-
+distillation projection heads and learned ability weights (``kd_project``,
+``kd_ability_weights``), and the ``Critic`` value head.  The module tree
+dot-joins to the flax param paths.
+
+Parameters live in ``dtype``; every mode casts its float inputs to it, as
+flax's Dense layers do with their inputs.  Evaluation holds them in the
+compute dtype.  Training holds f32 master weights and runs the modes under
+``torch.autocast`` for bf16 compute (``agent.trainer``).  The modes record
+autograd's graph whenever grad mode is on: evaluation callers run them
+under ``torch.no_grad()``.  ``deterministic=False`` turns dropout on, with
+masks from ``generator``.
 """
 
 from __future__ import annotations
@@ -15,12 +23,17 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..utils.device import resolve_device
-from .layers import NEG_INF, CrossModalLayer, TransformerLayer
+from .layers import NEG_INF, CrossModalLayer, TransformerLayer, dropout
 
 # ModelConfig switches this slice does not port, with the value it supports
 UNPORTED = {"do_back_txt": False, "do_back_img": False,
             "do_front_txt": False, "do_front_img": False,
-            "do_front_his": False, "kd_heads": False, "fuse_branches": False}
+            "do_front_his": False, "fuse_branches": False}
+# softplus^-1(1.0): the learned ability weights' initial value
+KD_WEIGHT_INIT = 0.5413
+KD_HEADS = ("txt_emb_w", "vp_txt_w", "gmap_txt_w", "local_cross_w",
+            "global_cross_w", "kdl_img_w", "kdl_avg_img_w")
+ABILITY_WEIGHTS = ("txt", "img", "local", "global", "predict")
 
 
 def refuse_unported(cfg: ModelConfig):
@@ -57,7 +70,7 @@ class LanguageEncoder(nn.Module):
         self.layers = _numbered(self, "layer", cfg.num_l_layers,
                                 lambda: TransformerLayer(cfg))
 
-    def forward(self, txt_ids, txt_masks):
+    def forward(self, txt_ids, txt_masks, deterministic=True, generator=None):
         c = self.cfg
         if txt_ids.shape[1] + c.pad_token_id + 1 > c.max_position_embeddings:
             raise ValueError(
@@ -68,10 +81,12 @@ class LanguageEncoder(nn.Module):
         x = (self.word_embeddings(txt_ids)
              + self.position_embeddings(positions + c.pad_token_id + 1)[None]
              + self.token_type_embeddings(torch.zeros_like(txt_ids)))
-        x = self.emb_norm(x)
+        x = dropout(self.emb_norm(x), c.hidden_dropout, deterministic,
+                    generator)
         attns = []
         for layer in self.layers:
-            x, probs = layer(x, txt_masks)
+            x, probs = layer(x, txt_masks, deterministic=deterministic,
+                             generator=generator)
             attns.append(probs)
         return x, torch.stack(attns, dim=1)
 
@@ -95,13 +110,16 @@ class PanoEncoder(nn.Module):
         if cfg.adaptive_pano_fusion:
             self.fusion_score = nn.Linear(d, 1)
 
-    def forward(self, view_img_fts, loc_fts, nav_types, pano_masks):
+    def forward(self, view_img_fts, loc_fts, nav_types, pano_masks,
+                deterministic=True, generator=None):
         img = self.img_norm(self.img_proj(view_img_fts))
         loc = self.loc_norm(self.loc_proj(loc_fts))
         x = self.fuse_norm(img + loc + self.nav_type_embedding(nav_types))
+        x = dropout(x, self.cfg.hidden_dropout, deterministic, generator)
         attns = []
         for layer in self.layers:
-            x, probs = layer(x, pano_masks)
+            x, probs = layer(x, pano_masks, deterministic=deterministic,
+                             generator=generator)
             attns.append(probs)
         if self.cfg.adaptive_pano_fusion:
             score = self.fusion_score(x)[..., 0]
@@ -128,7 +146,7 @@ class CrossModalEncoder(nn.Module):
                                 lambda: CrossModalLayer(cfg))
 
     def forward(self, visn, lang, visn_mask, lang_mask, pair_dists=None,
-                cross_kvs=None):
+                cross_kvs=None, deterministic=True, generator=None):
         self_bias = None
         if self.sprels and pair_dists is not None:
             x = (1.0 / (1.0 + pair_dists[..., None])).to(visn.dtype)
@@ -137,7 +155,8 @@ class CrossModalEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             visn, lang, probs = layer(
                 visn, lang, visn_mask, lang_mask, self_bias,
-                cross_kvs[i] if cross_kvs is not None else None)
+                cross_kvs[i] if cross_kvs is not None else None,
+                deterministic, generator)
             attns.append(probs)
         return visn, torch.stack(attns, dim=1)
 
@@ -180,22 +199,41 @@ class DualScaleVLNBert(nn.Module):
             # flax creates the gate's params only where it is called
             self.sap_fuse_linear = ClsPrediction(2 * d, c.layer_norm_eps)
         self.cls_fuse = nn.Linear(2 * d, d)
+        if c.kd_heads:
+            # the 7 projection heads and 5 learned ability weights of the
+            # reference checkpoint contract (vlnbert.py:292-305)
+            for name in KD_HEADS:
+                setattr(self, name, nn.Linear(d, c.kd_target_size))
+            for name in ABILITY_WEIGHTS:
+                setattr(self, f"kdl_{name}_weight",
+                        nn.Parameter(torch.tensor(KD_WEIGHT_INIT)))
         self.to(device=resolve_device(device), dtype=dtype)
         self.eval()
 
     def _f(self, x):
         return x.to(self.dtype)
 
-    @torch.no_grad()
-    def language(self, txt_ids, txt_masks):
-        return self.lang_encoder(txt_ids, txt_masks)
+    def language(self, txt_ids, txt_masks, deterministic=True,
+                 generator=None):
+        return self.lang_encoder(txt_ids, txt_masks, deterministic, generator)
 
-    @torch.no_grad()
-    def panorama(self, view_img_fts, loc_fts, nav_types, pano_masks):
+    def panorama(self, view_img_fts, loc_fts, nav_types, pano_masks,
+                 deterministic=True, generator=None):
         return self.pano_encoder(self._f(view_img_fts), self._f(loc_fts),
-                                 nav_types, pano_masks)
+                                 nav_types, pano_masks, deterministic,
+                                 generator)
 
-    @torch.no_grad()
+    def kd_project(self, name, x):
+        """The projection head ``name`` (one of ``KD_HEADS``) applied to
+        ``x``."""
+        return getattr(self, name)(self._f(x))
+
+    def kd_ability_weights(self):
+        """softplus of the learned per-ability weights, in the order
+        [txt, img, local, global, predict] (vlnbert.py:580-588)."""
+        return torch.stack([F.softplus(getattr(self, f"kdl_{n}_weight"))
+                            for n in ABILITY_WEIGHTS])
+
     def text_cross_kv(self, txt_embeds):
         """Instruction K/V of every cross layer whose language input is
         loop-invariant (layer 0; all layers without lang2visn), head-split
@@ -218,12 +256,12 @@ class DualScaleVLNBert(nn.Module):
             out[branch] = kvs
         return out
 
-    @torch.no_grad()
     def navigation(self, txt_embeds, txt_masks, gmap_img_embeds,
                    gmap_step_ids, gmap_pos_fts, gmap_masks,
                    gmap_visited_masks, gmap_pair_dists, vp_img_embeds,
                    vp_pos_fts, vp_masks, vp_nav_masks, gmap_local_slot,
-                   vp_cand_visited, txt_cross_kvs=None):
+                   vp_cand_visited, txt_cross_kvs=None, deterministic=True,
+                   generator=None):
         """Dual-scale cross-modal forward + dynamic action fusion (token
         layouts as in the reference: gmap [stop], [mem], visited...,
         frontier...; vp [stop], [mem], pano views...)."""
@@ -235,12 +273,13 @@ class DualScaleVLNBert(nn.Module):
         vp_embeds = self.vp_input_norm(
             self._f(vp_img_embeds) + self.vp_pos_proj(self._f(vp_pos_fts)))
         kvs = txt_cross_kvs or {}
+        drop = {"deterministic": deterministic, "generator": generator}
         gmap_embeds, gmap_attns = self.global_encoder(
             gmap_embeds, txt_embeds, gmap_masks, txt_masks, gmap_pair_dists,
-            cross_kvs=kvs.get("global"))
+            cross_kvs=kvs.get("global"), **drop)
         vp_embeds, vp_attns = self.local_encoder(
             vp_embeds, txt_embeds, vp_masks, txt_masks, None,
-            cross_kvs=kvs.get("local"))
+            cross_kvs=kvs.get("local"), **drop)
         global_scores = self.global_sap_head(gmap_embeds)
         local_scores = self.local_sap_head(vp_embeds)
 
@@ -281,3 +320,18 @@ class DualScaleVLNBert(nn.Module):
             "fused_logits": fused_logits, "fuse_weights": fuse[:, 0],
             "cls_embeds": cls_embeds,
         }
+
+
+class Critic(nn.Module):
+    """Value head (vlnbert.py:675-686): Linear -> relu -> Linear(1).  The
+    trainer builds one, as the reference agent does; only the A2C branch,
+    not ported yet, trains it."""
+
+    def __init__(self, hidden_size: int, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.Dense_0 = nn.Linear(hidden_size, hidden_size // 2)
+        self.Dense_1 = nn.Linear(hidden_size // 2, 1)
+        self.to(device=resolve_device(device), dtype=dtype)
+
+    def forward(self, state):
+        return self.Dense_1(F.relu(self.Dense_0(state)))[..., 0]

@@ -185,7 +185,8 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
     q ``[B, Lq, H*hd]``; k, v ``[B, Lk, H*hd]`` as the Linear layers emit
     them; ``mask_bias`` ``[B, Lk]`` f32 additive; ``sprel_bias`` optional
     ``[B, H, Lq, Lk]`` f32 additive.  q/k/v float32 or bfloat16, hd in
-    {16, 32, 64, 128}.  Returns ``[B, Lq, H*hd]`` in q's dtype.
+    {16, 32, 64, 128}.  Returns ``[B, Lq, H*hd]`` in q's dtype.  Forward
+    only: under grad mode, a CUDA input that requires grad raises.
     """
     _check(q, k, v, mask_bias, sprel_bias, num_heads)
     if q.device.type == "cpu":
@@ -194,6 +195,11 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
     if q.device.type != "cuda":
         raise ValueError(f"packed_attention runs on cpu or cuda, not "
                          f"{q.device.type}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, mask_bias, sprel_bias)):
+        raise RuntimeError("packed_attention has no backward: under grad "
+                           "mode its inputs must not require grad")
     b, lq, d = q.shape
     lk = k.shape[1]
     hd = d // num_heads

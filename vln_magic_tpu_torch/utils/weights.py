@@ -3,8 +3,11 @@
 The module tree of ``models.vlnbert.DualScaleVLNBert`` dot-joins to the flax
 param paths, so a flat ``{"params.<path>.<leaf>": array}`` dict maps onto it
 one to one: Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in],
-LayerNorm ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``, and
-``bias`` -> ``bias``.
+LayerNorm ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``,
+``bias`` -> ``bias``, and a parameter that a module holds directly (the
+learned ability weights ``kdl_*_weight``) -> the parameter of that name.
+``models.vlnbert.Critic`` names its layers ``Dense_0``/``Dense_1``, as flax
+does.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..models.vlnbert import KD_WEIGHT_INIT
 
 
 def _flax_names(model: nn.Module) -> dict[str, tuple[torch.Tensor, bool]]:
@@ -28,6 +33,9 @@ def _flax_names(model: nn.Module) -> dict[str, tuple[torch.Tensor, bool]]:
             names[f"{prefix}.bias"] = (mod.bias, False)
         elif isinstance(mod, nn.Embedding):
             names[f"{prefix}.embedding"] = (mod.weight, False)
+        else:
+            for p_name, param in mod.named_parameters(recurse=False):
+                names[f"{prefix}.{p_name}"] = (param, False)
     return names
 
 
@@ -51,17 +59,50 @@ def load_flax_params(model: nn.Module, flat: dict) -> None:
             if arr.shape != tuple(param.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            param.copy_(torch.from_numpy(arr.copy(order="C")))
+
+
+def flax_named_grads(model: nn.Module) -> dict[str, torch.Tensor]:
+    """``model``'s gradients under their flax names, in the flax layout
+    (Linear gradients transposed to [in, out]); zeros where there is no
+    gradient, as JAX gives for a parameter off the loss's path."""
+    out = {}
+    for name, (param, transpose) in _flax_names(model).items():
+        g = param.grad if param.grad is not None else torch.zeros_like(param)
+        out[name] = g.detach().t() if transpose else g.detach()
+    return out
+
+
+def load_trainer_params(trainer, params: dict, t_params: dict | None = None,
+                        critic_params: dict | None = None) -> None:
+    """Load a JAX ``Trainer``'s three parameter trees, each a flat dict
+    (``utils.checkpoint.flatten_params`` of ``params``, ``t_params`` and
+    ``critic_params``), into ``agent.trainer.Trainer`` ``trainer``: the
+    student, the teacher and the critic.  Each load raises on a missing or
+    unmatched name, and a tree given for a model the trainer lacks (or
+    missing for one it has) raises ``ValueError``."""
+    for what, model, flat in (("params", trainer.model, params),
+                              ("t_params", trainer.teacher_model, t_params),
+                              ("critic_params", trainer.critic,
+                               critic_params)):
+        if (model is None) != (flat is None):
+            raise ValueError(f"{what}: the trainer has "
+                             f"{'no' if model is None else 'a'} model for it")
+        if model is not None:
+            load_flax_params(model, flat)
 
 
 def init_params(model: nn.Module, seed: int, std: float = 0.02) -> None:
     """Random BERT-style weights from ``seed`` (a ``torch.Generator`` on the
     CPU, so the values do not depend on the device): normal(0, ``std``)
-    matrices and embeddings, zero biases, unit LayerNorm scales."""
+    matrices and embeddings, zero biases, unit LayerNorm scales, and the
+    learned ability weights at their initial 0.5413."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, (param, transpose) in sorted(_flax_names(model).items()):
-            if name.endswith(".scale"):
+            if param.dim() == 0:        # a learned ability weight
+                val = torch.tensor(KD_WEIGHT_INIT)
+            elif name.endswith(".scale"):
                 val = torch.ones(param.shape)
             elif name.endswith(".bias"):
                 val = torch.zeros(param.shape)
