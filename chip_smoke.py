@@ -65,7 +65,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    configuration, and JAX's ``compute_grads`` objective, per-partition
    gradient norms and some gradient leaves) through the port's
    ``compute_grads`` on the card in f32 with TF32 off: the objective to
-   1e-5 relative, the norms and leaves to 1e-4.
+   1e-5 relative, the norms and leaves to 1e-4;
+10. serving (``agent/serving.py``): in f32 on the golden world and
+    weights, every episode through a ``NavServer`` session and all of them
+    through one ``NavFleet``, each equal to the offline parity wave, and a
+    session saved mid-episode continuing identically on a fresh server and
+    in a fleet slot; then at ``bench.py --serve``'s shape (MAGIC-S bf16,
+    one 64-node scan): ``warmup()``, then episodes until 200 decisions are
+    measured (the first episode left out), ms per decision and per session
+    start, 6 ``packed_attention`` launches a session start and 14 a
+    decision, all on the tensor-core route; fleets of K 8 and 64 (rounds of
+    K episodes until 200 ticks are measured, round 0 left out), ms per tick
+    and per decision, 14 launches a tick, the share of decisions equal to
+    standalone sessions (bf16: reported); every ``packed_attention`` call
+    of a session start and two decisions (B 1), and of a fleet's joins and
+    two ticks (B 8, B 64), held against the plain version on the same
+    tensors as in phase 2 (5e-2 absolute and the exact limit); one decision
+    and one tick under ``torch.profiler`` (device time, copy records) with
+    their copies counted at PyTorch's dispatcher: exactly one
+    host-to-device and one device-to-host copy; f32 and int8 deployment
+    bundles, the int8 one under 0.45 of the f32 size and served to
+    ``finish()``.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
@@ -105,6 +125,10 @@ STREAM_ITEMS = 4 * MAIN_BATCH
 TEACHER = (16, 12)          # MAGIC teacher: B 16 (bench.py's training), H 12
 TRAIN_BATCH, TRAIN_STEPS = 16, 3
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_train_7.npz")
+SERVE_NODES = 64                 # bench.py --serve: one 64-node scan
+SERVE_DECISIONS = 200            # decisions measured in sessions
+FLEET_SLOTS = (8, 64)            # bench.py --serve --fleet K
+FLEET_TICKS = 200                # ticks measured at each K
 
 
 def emit(obj):
@@ -437,23 +461,31 @@ def phase_golden(card):
           "scan_steps": avg["scan_steps"], "card": card})
 
 
+def main_config():
+    """``bench.py``'s default shape (``bench.py:110-132``): MAGIC-S, hidden
+    128, 2 heads of 64, 6/2/3 layers, CLIP-768, 200-token instructions,
+    gmap 128, T 15, bf16, the packed kernel on."""
+    from vln_magic_tpu_torch.config import (EnvConfig, MagicConfig,
+                                            ModelConfig, TrainConfig)
+
+    return MagicConfig(
+        model=ModelConfig(hidden_size=128, num_attention_heads=2,
+                          num_l_layers=6, num_pano_layers=2, num_x_layers=3,
+                          image_feat_size=768, use_pallas_attention=True),
+        env=EnvConfig(max_action_len=MAIN_T, max_gmap_len=128,
+                      max_instr_len=200),
+        train=TrainConfig(batch_size=MAIN_BATCH, compute_dtype="bfloat16"))
+
+
 def build_main_path():
     """The full-width MAGIC-S navigator on the card, its world and 256
     items: (navigator, items, set-up seconds)."""
     from vln_magic_tpu_torch.agent.navigator import Navigator
-    from vln_magic_tpu_torch.config import (EnvConfig, MagicConfig,
-                                            ModelConfig, TrainConfig)
     from vln_magic_tpu_torch.env import make_synthetic_world
     from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
 
-    batch, t_steps, txt_len = MAIN_BATCH, MAIN_T, 200
-    cfg = MagicConfig(
-        model=ModelConfig(hidden_size=128, num_attention_heads=2,
-                          num_l_layers=6, num_pano_layers=2, num_x_layers=3,
-                          image_feat_size=768, use_pallas_attention=True),
-        env=EnvConfig(max_action_len=t_steps, max_gmap_len=128,
-                      max_instr_len=txt_len),
-        train=TrainConfig(batch_size=batch, compute_dtype="bfloat16"))
+    batch, txt_len = MAIN_BATCH, 200
+    cfg = main_config()
     t0 = time.perf_counter()
     world = make_synthetic_world(num_scans=3, nodes_per_scan=320,
                                  feat_dim=768, seed=0)
@@ -980,6 +1012,525 @@ def phase_golden_train(card):
           "tf32": torch.backends.cuda.matmul.allow_tf32, "card": card})
 
 
+def served(world, sess, item, steps, on_step=None):
+    """Drive ``sess`` through ``item`` from its start, observations replayed
+    from ``world``: (world-index actions, -1 for a stop; the decisions).
+    ``on_step(step)`` wraps each decision (launch counts)."""
+    from vln_magic_tpu_torch.agent.serving import observation_from_world
+
+    g = world.graphs[item["scan_idx"]]
+    cur = int(item["path_idx"][0])
+    actions, decs = [], []
+    for _ in range(steps):
+        obs = observation_from_world(world, item["scan_idx"], cur,
+                                     float(item["heading"]))
+        dec = on_step(lambda: sess.step(obs)) if on_step else sess.step(obs)
+        decs.append(dec)
+        if dec.target is not None:
+            cur = g.index[dec.target]
+        actions.append(-1 if dec.target is None else cur)
+        if dec.stop:
+            break
+    return actions, decs
+
+
+def served_fleet(world, fleet, items, steps, on_tick=None):
+    """All ``items`` through ``fleet`` at once, one tick per step:
+    (actions per item, ``finish()`` records, per tick (ms, decisions,
+    what ``on_tick`` returned))."""
+    from vln_magic_tpu_torch.agent.serving import observation_from_world
+
+    sessions = [fleet.join(it["instr_encoding"]) for it in items]
+    cur = [int(it["path_idx"][0]) for it in items]
+    actions = [[] for _ in items]
+    ticks = []
+    for _ in range(steps):
+        obs = {s.slot: observation_from_world(
+            world, items[i]["scan_idx"], cur[i], float(items[i]["heading"]))
+            for i, s in enumerate(sessions) if not s._ended}
+        if not obs:
+            break
+        torch.cuda.synchronize()
+        if on_tick:
+            on_tick(None)
+        t0 = time.perf_counter()
+        decs = fleet.step(obs)
+        ms = (time.perf_counter() - t0) * 1e3
+        ticks.append((ms, len(decs), on_tick(decs) if on_tick else None))
+        for i, s in enumerate(sessions):
+            d = decs.get(s.slot)
+            if d is None:
+                continue
+            g = world.graphs[items[i]["scan_idx"]]
+            if d.target is not None:
+                cur[i] = g.index[d.target]
+            actions[i].append(-1 if d.target is None else cur[i])
+    finals = [fleet.finish(s.slot) for s in sessions]
+    for s in sessions:
+        fleet.release(s.slot)
+    return actions, finals, ticks
+
+
+def _counted(fn):
+    """``fn()`` with the packed kernel's counts set to 0 just before and
+    read just after: (result, launches, tensor-core launches)."""
+    from vln_magic_tpu_torch.ops.attention import packed_attention
+
+    torch.cuda.synchronize()
+    packed_attention.launches = packed_attention.tc_launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, packed_attention.launches, packed_attention.tc_launches
+
+
+def phase_serving_golden(card):
+    """Phase 10, f32: every golden episode through a ``NavServer`` session
+    and all of them through one ``NavFleet``, each equal to the offline
+    parity wave (per-step targets, stop, trajectory with its backtrack);
+    then a session saved mid-episode, restored on a fresh server and in a
+    fleet slot, continuing as the uninterrupted run."""
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.agent.serving import (NavFleet, NavServer,
+                                                   NavSession,
+                                                   observation_from_world)
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    world = make_synthetic_world(num_scans=2, nodes_per_scan=20, feat_dim=24,
+                                 seed=777)
+    flat = dict(np.load(os.path.join(ROOT, "tests", "fixtures",
+                                     "golden_params_777.npz")))
+    cfg = golden_config(parity=True)
+    steps = cfg.env.max_action_len
+    items = make_synthetic_instructions(world, 8, np.random.default_rng(777),
+                                        vocab_size=400, min_path=3,
+                                        max_path=6)
+    rng = np.random.default_rng(10)
+    for it in items:   # a session pads to max_instr_len, a wave buckets
+        it["instr_encoding"] = rng.integers(
+            4, 400, cfg.env.max_instr_len).astype(np.int32)
+    _, aux = Navigator(cfg, world, params=flat,
+                       device="cuda").run_items(items)
+    aux = {k: v.cpu().numpy() for k, v in aux.items()}
+    n, c = world.tables.max_nodes, world.tables.max_candidates
+    server = NavServer(cfg, flat, max_nodes=n, max_cands=c, device="cuda")
+    fleet = NavFleet(cfg, model=server.model, slots=len(items), max_nodes=n,
+                     max_cands=c, device="cuda")
+
+    def check(what, b, actions, final):
+        g = world.graphs[items[b]["scan_idx"]]
+        want = aux["actions"][:, b].tolist()
+        traj = [g.node_ids[k] for k in
+                aux["traj_nodes"][b, :aux["traj_len"][b]].tolist()]
+        if (actions + [-1] * (len(want) - len(actions)) != want
+                or final["stop_node"] != g.node_ids[aux["stop_node"][b]]
+                or final["trajectory"] != traj):
+            raise AssertionError(f"{what} episode {b} differs from the "
+                                 f"parity wave: {actions}, {final} vs "
+                                 f"{want}, {traj}")
+
+    def run_sessions():
+        out = []
+        for it in items:
+            sess = server.new_session(it["instr_encoding"])
+            actions, _ = served(world, sess, it, steps)
+            out.append((actions, sess.finish()))
+        return out
+
+    sessions, launches, tc = _counted(run_sessions)
+    (f_actions, f_finals, _), f_launches, f_tc = _counted(
+        lambda: served_fleet(world, fleet, items, steps))
+    for b, (actions, final) in enumerate(sessions):
+        check("session", b, actions, final)
+        check("fleet", b, f_actions[b], f_finals[b])
+    if tc or f_tc or not launches or not f_launches:
+        raise AssertionError(f"golden serving: {launches} + {f_launches} "
+                             f"launches, {tc} + {f_tc} on the tensor-core "
+                             f"route (f32 takes the SIMT route)")
+
+    # crash recovery: save after the first decision, resume elsewhere
+    b = next(i for i, (a, _) in enumerate(sessions) if len(a) >= 2
+             and a[0] >= 0)
+    it, (want, want_final) = items[b], sessions[b]
+    g = world.graphs[it["scan_idx"]]
+    blob = os.path.join(attention_build_dir(), "serving_session.npz")
+    sess = server.new_session(it["instr_encoding"])
+    first = g.index[sess.step(observation_from_world(
+        world, it["scan_idx"], int(it["path_idx"][0]),
+        float(it["heading"]))).target]
+    sess.save(blob)
+    rest_item = dict(it, path_idx=[first])
+    fleet2 = NavFleet(cfg, model=server.model, slots=2, max_nodes=n,
+                      max_cands=c, device="cuda")
+    fleet2.join(items[0]["instr_encoding"])        # slot 0 never submits
+    for where, resumed in (
+            ("server", NavSession.restore(
+                NavServer(cfg, flat, max_nodes=n, max_cands=c,
+                          device="cuda"), blob)),
+            ("fleet slot 1", fleet2.restore_session(blob))):
+        rest, _ = served(world, resumed, rest_item, steps - 1)
+        if [first] + rest != want or resumed.finish() != want_final:
+            raise AssertionError(f"restored on a {where}: {[first] + rest} "
+                                 f"vs {want}")
+    os.remove(blob)
+    emit({"phase": "serving_golden", "episodes": len(items), "match": True,
+          "session_launches": launches, "fleet_launches": f_launches,
+          "route": "simt", "fleet_slots": len(items),
+          "save_restore": {"episode": b, "decisions": len(want),
+                           "server": True, "fleet_slot": 1},
+          "card": card})
+    return launches + f_launches
+
+
+def attention_build_dir():
+    from vln_magic_tpu_torch.ops import attention
+
+    os.makedirs(attention.BUILD_DIR, exist_ok=True)
+    return attention.BUILD_DIR
+
+
+class _DeviceCopies:
+    """Counts the copies between host and card that a block asks PyTorch
+    for, at its dispatcher: ``htod`` and ``dtoh`` (``to``, ``copy_``,
+    ``item``), and ``mixed``, the names of other ops given host and card
+    tensors together (an indexed write of a host value copies it to the
+    card first)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+        self.htod = self.dtoh = 0
+        self.mixed = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                counter.count(func.overloadpacket.__name__, args, out)
+                return out
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+    def count(self, name, args, out):
+        tensors = [t for t in torch.utils._pytree.tree_leaves(args)
+                   if isinstance(t, torch.Tensor)]
+        if name in ("_to_copy", "copy_"):
+            src, dst = (args[1], args[0]) if name == "copy_" else (args[0],
+                                                                   out)
+            way = (src.device.type, dst.device.type)
+            self.htod += way == ("cpu", "cuda")
+            self.dtoh += way == ("cuda", "cpu")
+        elif name == "_local_scalar_dense":
+            self.dtoh += args[0].is_cuda
+        elif len({t.device.type for t in tensors} & {"cpu", "cuda"}) == 2:
+            self.mixed.append(name)
+
+
+def _memcpys(prof):
+    """The device's memcpy records of a profiled window by direction, and
+    the ``cudaMemcpy*`` runtime calls the host made.  Reported only: the
+    records of some windows lack a copy whose runtime call is there."""
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "Memcpy" in e.name]
+    return {"htod": sum("HtoD" in nm for nm in dev),
+            "dtoh": sum("DtoH" in nm for nm in dev),
+            "dtod": sum("DtoD" in nm for nm in dev),
+            "memcpy_calls": sum(
+                e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("cudaMemcpy") for e in prof.events())}
+
+
+def _profiled(fn, wall_ms):
+    """``fn()`` (one decision or tick) under ``torch.profiler`` and
+    ``_DeviceCopies``: (its result, its copies and device breakdown).  It
+    must ask for one host-to-device and one device-to-host copy and no
+    other transfer, as the serving docstring says."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            _DeviceCopies() as copies:
+        out = fn()
+    packed_us = sum(e.time_range.end - e.time_range.start
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "packed_attention" in e.name)
+    got = {"htod": copies.htod, "dtoh": copies.dtoh,
+           "mixed_device_ops": copies.mixed, "records": _memcpys(prof),
+           "packed_attention_ms": packed_us / 1e3,
+           **device_breakdown(prof, wall_ms, top=5)}
+    if not (copies.htod == 1 and copies.dtoh == 1 and not copies.mixed):
+        raise AssertionError(f"a decision or tick asked for {copies.htod} "
+                             f"host-to-device and {copies.dtoh} "
+                             f"device-to-host copies, and ran "
+                             f"{copies.mixed} on host and card tensors "
+                             f"together; the serving docstring says one "
+                             f"copy each way")
+    return out, got
+
+
+def _stats(ms):
+    ms = np.asarray(ms, np.float64)
+    return {"mean": float(ms.mean()), "p50": float(np.percentile(ms, 50)),
+            "p95": float(np.percentile(ms, 95)), "n": int(ms.size)}
+
+
+def _checked_packed(fn):
+    """``fn()`` with every ``packed_attention`` call the model makes in it
+    held against the plain version on the same card tensors: within
+    ``BF16_TOL`` of it and within ``packed_attention_error``'s limit of the
+    kernel's own f32 arithmetic, each launch on the tensor-core route.
+    Returns ``(fn's result, one row per (B, Lq, Lk, sprel))``."""
+    from vln_magic_tpu_torch.models import layers
+    from vln_magic_tpu_torch.ops import attention
+
+    real, pa = layers.packed_attention, attention.packed_attention
+    calls = []
+
+    def recorded(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
+        tc = pa.tc_launches
+        out = real(q, k, v, mask_bias, sprel_bias, num_heads=num_heads)
+        calls.append(([None if t is None else t.clone()
+                       for t in (q, k, v, mask_bias, sprel_bias)],
+                      num_heads, out.clone(), pa.tc_launches > tc))
+        return out
+
+    layers.packed_attention = recorded
+    try:
+        result = fn()
+    finally:
+        layers.packed_attention = real
+    rows = {}
+    for (q, k, v, mask, sp), h, got, tc in calls:
+        want = attention.packed_attention_reference(q, k, v, mask, sp, h)
+        err = (got.float() - want.float()).abs().max().item()
+        exact_err, used = attention.packed_attention_error(
+            q, k, v, mask, sp, h, got, atol=F32_TOL)
+        shape = (q.shape[0], q.shape[1], k.shape[1], sp is not None)
+        if not (torch.isfinite(got).all() and err <= BF16_TOL and used <= 1.0
+                and tc):
+            raise AssertionError(
+                f"packed_attention at (B, Lq, Lk, sprel) {shape} "
+                f"({'tensor-core' if tc else 'SIMT'} route): max abs err "
+                f"{err} (tol {BF16_TOL}); against f32 arithmetic "
+                f"{exact_err}, {used:.3f} of its limit")
+        row = rows.setdefault(shape, {
+            "B": shape[0], "Lq": shape[1], "Lk": shape[2], "sprel": shape[3],
+            "calls": 0, "max_abs_err": 0.0, "exact_limit_used": 0.0})
+        row["calls"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["exact_limit_used"] = max(row["exact_limit_used"], used)
+    if not calls:
+        raise AssertionError("no packed_attention call to check")
+    return result, sorted(rows.values(), key=lambda r: (
+        r["B"], r["Lq"], r["Lk"], r["sprel"]))
+
+
+def phase_serving(card):
+    """Phase 10 at ``bench.py --serve``'s shape: sessions (warm-up, then
+    episodes until ``SERVE_DECISIONS`` decisions are measured, the first
+    episode left out) and fleets of K 8 and 64 (rounds of K episodes until
+    ``FLEET_TICKS`` ticks are measured, round 0 left out), the packed
+    kernel's launches counted per session start (6) and per decision or tick
+    (14), all on the tensor-core route; each packed call of a session start,
+    two decisions, a fleet's joins and two ticks held against the plain
+    version; one decision and one tick under ``torch.profiler`` (copies,
+    device time); an int8 bundle round trip."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from vln_magic_tpu_torch.agent.serving import (NavFleet, NavServer,
+                                                   observation_from_world)
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
+    from vln_magic_tpu_torch.utils.weights import init_params
+
+    cfg = main_config()
+    steps = cfg.env.max_action_len
+    world = make_synthetic_world(num_scans=1, nodes_per_scan=SERVE_NODES,
+                                 feat_dim=768, seed=0)
+    c = world.tables.max_candidates
+    model = DualScaleVLNBert(cfg.model, dtype=torch.bfloat16, device="cuda")
+    init_params(model, 0)
+    rng = np.random.default_rng(3)
+
+    def instructions(k):
+        items = make_synthetic_instructions(world, k, rng, min_path=4,
+                                            max_path=7)
+        for it in items:
+            it["instr_encoding"] = rng.integers(4, 1000, 200).astype(np.int32)
+        return items
+
+    server = NavServer(cfg, model=model, max_nodes=SERVE_NODES, max_cands=c,
+                       device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    def per_decision(step):
+        dec, n, tc = _counted(step)
+        counts.append((n, tc))
+        return dec
+
+    items, lat, starts, counts, lengths, start_ms = [], [], [], [], [], []
+    while len(lat) < SERVE_DECISIONS:
+        it = instructions(1)[0]
+        items.append(it)
+        t0 = time.perf_counter()
+        sess, n, tc = _counted(lambda: server.new_session(
+            it["instr_encoding"]))
+        start_ms.append((time.perf_counter() - t0) * 1e3)
+        starts.append((n, tc))
+        actions, decs = served(world, sess, it, steps, per_decision)
+        sess.finish()
+        lengths.append(len(decs))
+        if len(items) > 1:  # episode 0 touches the freshly warmed paths again
+            lat += [d.latency_ms for d in decs]
+    per_start = cfg.model.num_l_layers            # the language encoder
+    bad = [x for x in starts if x != (per_start,) * 2] + \
+        [x for x in counts if x != (LAUNCHES_PER_STEP,) * 2]
+    if bad:
+        raise AssertionError(f"serving: (launches, tensor-core launches) "
+                             f"{bad[:5]}, want {per_start} a session start "
+                             f"and "
+                             f"{LAUNCHES_PER_STEP} a decision, all "
+                             f"tensor-core")
+    it = items[1]
+    _, checked = _checked_packed(lambda: served(
+        world, server.new_session(it["instr_encoding"]), it, 2))
+    kernel_check = {"session": checked}
+
+    # one decision (and the next, if the episode goes on) under the profiler
+    sess = server.new_session(it["instr_encoding"])
+    obs = observation_from_world(world, 0, int(it["path_idx"][0]),
+                                 float(it["heading"]))
+    profiled = []
+    for _ in range(2):
+        dec, copies = _profiled(lambda: sess.step(obs),
+                                float(np.median(lat)))
+        profiled.append(copies)
+        if dec.stop:
+            break
+        obs = observation_from_world(world, 0, world.graphs[0].index[
+            dec.target], 0.0)
+    emit({"phase": "serving_session", "nodes": SERVE_NODES, "T": steps,
+          "episodes": len(items) - 1, "warmup_s": warmup_s,
+          "ms_per_decision": _stats(lat),
+          "ms_per_session_start": _stats(start_ms[1:]),
+          "decisions_per_episode": dict(sorted(Counter(lengths[1:]).items())),
+          "launches_per_session_start": per_start,
+          "launches_per_decision": LAUNCHES_PER_STEP, "route": "tensor_core",
+          "profiled_decisions": profiled, "card": card})
+    serve_launches = sum(n for n, _ in starts + counts)
+
+    fleets, fleet_launches = {}, 0
+    for k in FLEET_SLOTS:
+        fleet = NavFleet(cfg, model=model, slots=k, max_nodes=SERVE_NODES,
+                         max_cands=c, device="cuda")
+        walls, tick_counts, n_dec, measured, rounds = [], [], 0, None, 0
+
+        def on_tick(decs):
+            from vln_magic_tpu_torch.ops.attention import packed_attention
+            if decs is None:
+                packed_attention.launches = packed_attention.tc_launches = 0
+                return None
+            torch.cuda.synchronize()
+            return packed_attention.launches, packed_attention.tc_launches
+
+        while len(walls) < FLEET_TICKS:
+            f_items = instructions(k)
+            actions, _, ticks = served_fleet(world, fleet, f_items, steps,
+                                             on_tick)
+            tick_counts += [x for _, _, x in ticks]
+            if rounds > 0:  # round 0 pays the first calls at these shapes
+                walls += [ms for ms, _, _ in ticks]
+                n_dec += sum(d for _, d, _ in ticks)
+                measured = measured or (f_items, actions)
+            rounds += 1
+        if any(x != (LAUNCHES_PER_STEP,) * 2 for x in tick_counts):
+            raise AssertionError(f"fleet {k}: (launches, tensor-core) per "
+                                 f"tick {sorted(set(tick_counts))}, want "
+                                 f"{LAUNCHES_PER_STEP} tensor-core")
+        fleet_launches += sum(n for n, _ in tick_counts)
+        # the same items as K standalone sessions (bf16: reported)
+        equal = total = 0
+        for it, got in zip(*measured):
+            want, _ = served(world, server.new_session(it["instr_encoding"]),
+                             it, steps)
+            total += max(len(want), len(got))
+            equal += sum(a == b for a, b in zip(want, got))
+        _, checked = _checked_packed(lambda: served_fleet(
+            world, fleet, instructions(k), 2))
+        kernel_check[f"fleet_{k}"] = checked
+        # one tick under the profiler
+        f_items = instructions(k)
+        sessions = [fleet.join(it["instr_encoding"]) for it in f_items]
+        obs = {s.slot: observation_from_world(
+            world, 0, int(it["path_idx"][0]), float(it["heading"]))
+            for s, it in zip(sessions, f_items)}
+        _, tick_prof = _profiled(lambda: fleet.step(obs),
+                                 float(np.median(walls)))
+        for s in sessions:
+            fleet.release(s.slot)
+        fleets[k] = {"ms_per_tick": _stats(walls),
+                     "ms_per_decision": float(np.sum(walls)) / n_dec,
+                     "decisions": n_dec, "ticks": len(walls),
+                     "rounds_measured": rounds - 1,
+                     "launches_per_tick": LAUNCHES_PER_STEP,
+                     "share_equal_to_sessions": equal / total,
+                     "feature_bank_mb": fleet._features.numel() * 4 / 1e6,
+                     "profiled_tick": tick_prof}
+        emit({"phase": "serving_fleet", "slots": k, "nodes": SERVE_NODES,
+              **fleets[k], "route": "tensor_core", "card": card})
+        del fleet
+    emit({"phase": "serving_kernel_check", "tol": BF16_TOL,
+          "paths": kernel_check, "card": card})
+
+    # deployment bundles: f32 and int8, the int8 one served to finish()
+    tmp = tempfile.mkdtemp(dir=attention_build_dir())
+    try:
+        sizes = {}
+        for name, q in (("f32", False), ("int8", True)):
+            server.export_bundle(os.path.join(tmp, name), quantize=q)
+            sizes[name] = os.path.getsize(os.path.join(tmp, name,
+                                                       "params.npz"))
+        if not sizes["int8"] < 0.45 * sizes["f32"]:
+            raise AssertionError(f"int8 bundle {sizes}: not under 0.45 of "
+                                 f"the f32 one")
+        loaded = NavServer.from_bundle(os.path.join(tmp, "int8"),
+                                       device="cuda")
+        it = items[1]
+        sess = loaded.new_session(it["instr_encoding"])
+        actions, _ = served(world, sess, it, steps)
+        final = sess.finish()
+        want, _ = served(world, server.new_session(it["instr_encoding"]),
+                         it, steps)
+    finally:
+        shutil.rmtree(tmp)
+    emit({"phase": "serving_bundle", "params_npz_bytes": sizes,
+          "int8_share": sizes["int8"] / sizes["f32"],
+          "int8_decisions": len(actions),
+          "int8_equal_to_bf16_session": actions == want,
+          "int8_final_steps": final["steps"], "card": card})
+    worst = lambda key: max(r[key] for rows in kernel_check.values()
+                            for r in rows)
+    return {"serve": serve_launches, "fleet": fleet_launches,
+            "session": lat, "fleets": fleets,
+            "checked_max_abs_err": worst("max_abs_err"),
+            "checked_exact_limit_used": worst("exact_limit_used")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -997,6 +1548,8 @@ def main():
     fused = phase_fused(card)
     train_launches = phase_training(card, nav.world)
     phase_golden_train(card)
+    golden_serve_launches = phase_serving_golden(card)
+    serve = phase_serving(card)
     by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     emit({"kernels": [{
         "name": "packed_attention", "route": "cuda",
@@ -1008,13 +1561,20 @@ def main():
         "library_ms": packed["library_ms"],
         "eager_ms": packed["eager_ms"],
         "exact_limit_used": packed["exact_limit_used"],
+        "serve_max_abs_err": serve["checked_max_abs_err"],
+        "serve_exact_limit_used": serve["checked_exact_limit_used"],
         "launches_by_path": {"wave": wave_launches,
                              "stream": stream_launches,
                              "parity": parity_launches,
                              "train_step": train_launches[
-                                 "packed_attention"]},
+                                 "packed_attention"],
+                             "serve": serve["serve"],
+                             "fleet": serve["fleet"],
+                             "serve_golden_f32": golden_serve_launches},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
-                          "parity": "tensor_core", "golden_f32": "simt"},
+                          "parity": "tensor_core", "golden_f32": "simt",
+                          "serve": "tensor_core", "fleet": "tensor_core",
+                          "serve_golden_f32": "simt"},
         "per": "one wave of the main path (216 launches, bf16, tensor-core "
                "route)"}, {
         "name": "fused_attention", "route": "cuda",

@@ -25,6 +25,16 @@ from vln_magic_tpu_torch.ops.attention import (packed_attention,
 TOL = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(b, h, lq, lk, hd, sprel, seed, masked_row=False):
     rng = np.random.default_rng(seed)
     d = h * hd

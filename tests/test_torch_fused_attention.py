@@ -31,6 +31,16 @@ TOL = 2e-5
 BF16_OUT_TOL, BF16_MAP_TOL = 5e-2, 1e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(b, h, lq, lk, hd, seed, full_bias=False, masked_row=False):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, lq, hd)).astype(np.float32)

@@ -28,6 +28,16 @@ HERE = os.path.dirname(__file__)
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -48,6 +48,16 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(cfg, seed=0):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)

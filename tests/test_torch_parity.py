@@ -38,6 +38,16 @@ FTOL = 1e-6
 PARITY_FIELDS = ("obs_dist", "obs_steps", "traj_nodes", "traj_len")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def parity_cfg(module):
     """tests/test_golden.py's parity configuration, from either package."""
     return module.MagicConfig(

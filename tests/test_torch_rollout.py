@@ -39,6 +39,16 @@ FIXTURE = os.path.join(HERE, "fixtures", "golden_params_777.npz")
 FTOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def golden_cfg(module, **model_kw):
     """The tests/test_golden.py configuration, from either package."""
     return module.MagicConfig(

@@ -8,6 +8,7 @@ weights.  Integers and trajectories must be equal.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -22,6 +23,16 @@ from vln_magic_tpu_torch.agent.streaming import StreamEval
 from vln_magic_tpu_torch.env import make_synthetic_world
 
 LANES = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfg(module, fusion="dynamic", parity=False):

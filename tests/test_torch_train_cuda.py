@@ -1,6 +1,7 @@
 """The port's training on the card: the golden JAX training step in f32,
-one full-width bf16 MAKD + ICoD DAgger step, and the packed kernel's
-wrapper refusing inputs that require grad (it has no backward).
+one full-width bf16 MAKD + ICoD DAgger step, a deterministic distillation
+rollout with a packed student, and the packed kernel's wrapper refusing
+inputs that require grad (it has no backward).
 
 These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  They import no JAX:
@@ -23,6 +24,16 @@ from vln_magic_tpu_torch.ops import attention
 
 pytestmark = pytest.mark.cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors, so that the test workers
+    sharing the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -67,6 +78,63 @@ def test_full_width_bf16_step_has_finite_losses(chip_smoke, cuda):
     assert m["grad_norm"] > 0 and m["il/kdl_loss"] > 0
     assert chip_smoke._launches() == {"packed_attention": 0,
                                       "fused_attention": 0}
+
+
+def _deterministic_distillation(device):
+    """A deterministic distillation rollout with a packed student (tiny
+    shapes, random weights from seeds) on ``device``: its aux."""
+    from vln_magic_tpu_torch.agent.navigator import (episodes_from_items,
+                                                     pad_instructions)
+    from vln_magic_tpu_torch.agent.rollout import Rollout, Tables
+    from vln_magic_tpu_torch.config import (DistillConfig, EnvConfig,
+                                            ModelConfig)
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
+    from vln_magic_tpu_torch.utils.weights import init_params
+
+    world = make_synthetic_world(num_scans=1, nodes_per_scan=14, feat_dim=16,
+                                 seed=9)
+    items = make_synthetic_instructions(world, 4, np.random.default_rng(2),
+                                        vocab_size=300, min_path=2,
+                                        max_path=4)
+    models = []
+    for seed, hidden, kd, packed in ((1, 32, 64, True), (2, 64, 32, False)):
+        m = DualScaleVLNBert(ModelConfig(
+            vocab_size=300, hidden_size=hidden, num_attention_heads=2,
+            num_l_layers=1, num_pano_layers=1, num_x_layers=1,
+            image_feat_size=16, max_position_embeddings=64, kd_heads=True,
+            kd_target_size=kd, hidden_dropout=0.0, attention_dropout=0.0,
+            use_pallas_attention=packed), device=device)
+        init_params(m, seed)
+        models.append(m)
+    tables = Tables.from_world(world.tables, device)
+    ro = Rollout(tables, EnvConfig(max_action_len=5, max_gmap_len=16,
+                                   max_instr_len=32), *models)
+    state = episodes_from_items(tables, items, 32, teacher_size=64)
+    ids, masks = pad_instructions(items, 32)
+    return ro.run(state, torch.from_numpy(ids).to(device),
+                  torch.from_numpy(masks).to(device), "teacher",
+                  train_ml=1.0, deterministic=True,
+                  distill=DistillConfig(train_kdl=True))
+
+
+def test_deterministic_distillation_with_a_packed_student_runs(cuda):
+    """A packed student's deterministic distillation rollout used to raise
+    on the card (the packed kernel has no backward).  Its training
+    forwards now keep attention off the kernel: no launch, the losses
+    equal the CPU run's to 1e-4 relative (TF32 off) and the backward
+    runs."""
+    attention.packed_attention.launches = 0
+    got = _deterministic_distillation(cuda)
+    assert attention.packed_attention.launches == 0
+    want = _deterministic_distillation("cpu")
+    for k, v in want["kd_losses"].items():
+        g = got["kd_losses"][k].item()
+        w = v.item()
+        assert math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w) + 1e-7, k
+    assert got["kd_losses"]["txt_attn_loss"].item() > 0
+    (got["ml_loss"] + sum(got["kd_losses"].values())).backward()
 
 
 def test_packed_attention_refuses_inputs_that_require_grad(cuda):

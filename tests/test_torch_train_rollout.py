@@ -2,8 +2,9 @@
 against vln_magic_tpu's: the supervision targets on the same episode
 states, ``Rollout.run`` with a teacher and distillation (the summed CE of
 both models and each of the ten MAKD losses in both roles, to 1e-5
-relative), the sampled feedback modes against their distributions, and
-the training switches of the model layers (dropout, the packed path).
+relative; also deterministic with a packed student), the sampled feedback
+modes against their distributions, and the training switches of the model
+layers (dropout, the packed path).
 
 Weights are JAX-shaped random numpy arrays carried into both packages;
 dropout is 0 and the DAgger feedback argmax, so both sides are
@@ -107,7 +108,8 @@ def setup():
             "params": params, "models": models, "jt": jt, "tt": tt}
 
 
-def _jax_run(s, feedback, distill, use_teacher_policy=False):
+def _jax_run(s, feedback, distill, use_teacher_policy=False,
+             deterministic=False):
     rj = jax_rollout.Rollout(s["jt"], env_cfg(jcfg),
                              FlaxModel(s["cfgs"][jcfg][0]),
                              FlaxModel(s["cfgs"][jcfg][1]))
@@ -115,19 +117,19 @@ def _jax_run(s, feedback, distill, use_teacher_policy=False):
     ids, masks = pad_instructions(s["items"], 32)
     run = jax.jit(lambda p, tp, st: rj.run(
         p, st, jnp.asarray(ids), jnp.asarray(masks), feedback,
-        jax.random.PRNGKey(0), train_ml=0.2, deterministic=False,
+        jax.random.PRNGKey(0), train_ml=0.2, deterministic=deterministic,
         teacher_params=tp, distill=distill,
         use_teacher_policy=use_teacher_policy)[1])
     return run(*s["params"], state)
 
 
-def _port_run(s, feedback, distill, **kw):
-    ro = port_rollout.Rollout(s["tt"], env_cfg(tcfg), *s["models"])
+def _port_run(s, feedback, distill, models=None, deterministic=False, **kw):
+    ro = port_rollout.Rollout(s["tt"], env_cfg(tcfg), *(models or s["models"]))
     state = episodes_from_items(s["tt"], s["items"], 32, teacher_size=64)
     ids, masks = pad_instructions(s["items"], 32)
     return ro.run(state, torch.from_numpy(ids.astype(np.int64)),
                   torch.from_numpy(masks), feedback, seed=0, train_ml=0.2,
-                  deterministic=False, distill=distill, **kw)
+                  deterministic=deterministic, distill=distill, **kw)
 
 
 @pytest.mark.parametrize("feedback,weights,teacher_policy", [
@@ -156,6 +158,33 @@ def test_distillation_rollout_losses_match_jax(setup, feedback, weights,
             np.testing.assert_allclose(got[group][k].item(), float(v),
                                        rtol=RTOL, err_msg=f"{group} {k}")
     assert int(got["gmap_overflow"]) == int(want["gmap_overflow"])
+
+
+def test_deterministic_distillation_with_a_packed_student_matches_jax(setup):
+    """A student with ``use_pallas_attention`` in a deterministic
+    distillation rollout: the training forwards keep attention off the
+    packed kernel (its zeros in place of the maps made the four attention
+    losses 117-152x JAX's), so every loss, the attention ones included,
+    equals JAX's CPU value to RTOL."""
+    s = setup
+    want = _jax_run(s, "teacher", distill_cfg(jcfg), deterministic=True)
+    student = DualScaleVLNBert(model_cfg(tcfg, 32, 64,
+                                         use_pallas_attention=True),
+                               device="cpu")
+    load_flax_params(student, flatten_params(s["params"][0]))
+    got = _port_run(s, "teacher", distill_cfg(tcfg),
+                    models=(student, s["models"][1]), deterministic=True)
+    np.testing.assert_array_equal(got["actions"].numpy(),
+                                  np.asarray(want["actions"]))
+    np.testing.assert_allclose(got["ml_loss"].item(), float(want["ml_loss"]),
+                               rtol=RTOL)
+    for group in ("kd_losses", "t_kd_losses"):
+        for k in ("txt_attn_loss", "img_attn_loss", "local_attn_loss",
+                  "global_attn_loss"):
+            assert float(want[group][k]) != 0.0, (group, k)
+        for k, v in want[group].items():
+            np.testing.assert_allclose(got[group][k].item(), float(v),
+                                       rtol=RTOL, err_msg=f"{group} {k}")
 
 
 def test_remat_rollout_equals_the_plain_rollout(setup):
@@ -312,8 +341,10 @@ def test_sampled_decodes_depend_only_on_the_seed(setup):
 # ---- the layers' training switches ------------------------------------------
 
 def test_training_attention_never_takes_the_packed_path(monkeypatch, setup):
-    """A training call (deterministic=False) runs the einsum path even with
-    ``use_pallas_attention``; an evaluation call takes the packed path."""
+    """A training call (deterministic=False) and a deterministic call that
+    needs the maps (``need_maps``, the training rollout's) run the einsum
+    path even with ``use_pallas_attention``; an evaluation call takes the
+    packed path."""
     calls = []
     real = port_layers.packed_attention
     monkeypatch.setattr(port_layers, "packed_attention",
@@ -324,7 +355,8 @@ def test_training_attention_never_takes_the_packed_path(monkeypatch, setup):
     masks = torch.ones((2, 8), dtype=torch.bool)
     gen = torch.Generator().manual_seed(0)
     model.language(ids, masks, deterministic=False, generator=gen)
-    assert calls == []
+    _, maps = model.language(ids, masks, need_maps=True)
+    assert calls == [] and maps.abs().sum() > 0
     model.language(ids, masks)
     assert len(calls) == cfg.num_l_layers
 

@@ -349,6 +349,14 @@ def test_fit_runs_and_the_teacher_freezes_without_icod(jax_run, port_world):
     assert not torch.equal(s_before, tr.model.cls_fuse.weight)
 
 
+def test_fit_history_entries_carry_aug(jax_run, port_world):
+    """As JAX's ``fit``, each history entry says whether its batch was an
+    aug batch: 0.0, since aug batches are not ported."""
+    tr = port_trainer_like(jax_run, port_world)
+    hist = tr.fit(items_for(port_world), 1)
+    assert [m["aug"] for m in hist] == [0.0]
+
+
 def test_load_trainer_params_carries_all_three_trees(jax_run, port_world):
     """Every name of a JAX trainer's three trees has its parameter (the
     load raises on a missing or unmatched one), scalars and the critic

@@ -1,9 +1,11 @@
 """vln_magic_tpu_torch — the MAGIC navigator in PyTorch for NVIDIA Hopper.
 
 A port of ``vln_magic_tpu`` (JAX on TPU), which stays in the repository as
-the reference.  This package imports torch and numpy only.  The first slice
-covers greedy evaluation (``agent.Navigator.evaluate``) with packed-head
-attention as a hand-written CUDA kernel (``ops.attention``).
+the reference.  This package imports torch and numpy only.  It covers
+evaluation (``agent.navigator.Navigator.evaluate``), MAKD + ICoD DAgger
+training (``agent.trainer.Trainer``) and online serving (``agent.NavServer``,
+``agent.NavFleet``), with the attention kernels hand-written in CUDA
+(``ops.attention``).
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller passes ``device="cpu"``.

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -50,9 +51,15 @@ def pos_features_7(cur_pos, node_pos, graph_dist, graph_steps, cur_heading,
     return torch.cat([ang, rel], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _view_angles(device: torch.device) -> torch.Tensor:
+    """The 36 view-center angles on ``device``, copied there once: a step
+    then makes no host-to-device copy of them."""
+    return torch.as_tensor(ALL_VIEW_ANGLES, dtype=torch.float32,
+                           device=device)
+
+
 def view_angles_relative(base_heading, base_elevation):
     """(B, 36, 2) view-center angles relative to the agent's base view."""
-    views = torch.as_tensor(ALL_VIEW_ANGLES, dtype=torch.float32,
-                            device=base_heading.device)
-    return views[None] - torch.stack([base_heading, base_elevation],
-                                     dim=-1)[:, None, :]
+    return _view_angles(base_heading.device)[None] - torch.stack(
+        [base_heading, base_elevation], dim=-1)[:, None, :]

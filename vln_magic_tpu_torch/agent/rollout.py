@@ -143,6 +143,20 @@ class EpisodeBatch:
             if getattr(self, f) is not None})
 
 
+def select_lanes(mask, new: EpisodeBatch, old: EpisodeBatch) -> EpisodeBatch:
+    """Per lane, ``new``'s state where ``mask`` [B] holds, else ``old``'s,
+    as new tensors: neither input is written, so expanded or shared fields
+    (the parity distances of ``init_episodes``) are safe.  ``new`` may be
+    one lane, broadcast to all."""
+    out = {}
+    for f in dataclasses.fields(EpisodeBatch):
+        o = getattr(old, f.name)
+        if o is not None:       # the teacher's fields: no teacher
+            m = mask.reshape(mask.shape + (1,) * (o.dim() - 1))
+            out[f.name] = torch.where(m, getattr(new, f.name), o)
+    return dataclasses.replace(old, **out)
+
+
 # fields a step updates in place: the step-id stamp, the node embeddings,
 # the observation order, the stop scores, visits and the trajectory record
 _WRITTEN_IN_PLACE = ("step_ids", "embed_sum", "embed_cnt", "t_embed_sum",
@@ -200,8 +214,8 @@ def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
         state.t_embed_cnt = zeros(b, n1)
         state.t_mem = zeros(b, teacher_size)
     # the start node carries step id 1 from the outset and is visited
-    state.step_ids[bi, start] = 1
-    state.visited[bi, start] = True
+    _set_at(state.step_ids, (bi, start), 1)
+    _set_at(state.visited, (bi, start), True)
     if observed_parity:
         relax_observed(state, tables, start,
                        torch.ones(b, dtype=torch.bool, device=dev))
@@ -239,8 +253,8 @@ def relax_observed(state: EpisodeBatch, tables: Tables, v, live) -> None:
     use_direct = direct < row_d
     row_d = torch.where(use_direct, direct, row_d)
     row_s = torch.where(use_direct, 1.0, row_s)
-    row_d[bi, v] = 0.0                                        # d(v, v) = 0
-    row_s[bi, v] = 0.0
+    _set_at(row_d, (bi, v), 0.0)                              # d(v, v) = 0
+    _set_at(row_s, (bi, v), 0.0)
 
     new_d = row_d[:, :, None] + row_d[:, None, :]
     better = (new_d < D) & live[:, None, None]
@@ -273,6 +287,13 @@ def _observe(state: EpisodeBatch, tables: Tables) -> None:
     order.scatter_reduce_(1, tgt, torch.where(new, count[:, None] + rank, UNOBS),
                           "amin", include_self=True)
     state.obs_count = count + new.sum(dim=1)
+
+
+def _set_at(x, idx, value) -> None:
+    """``x[idx] = value`` for a Python scalar ``value``.  An indexed
+    assignment from a Python scalar copies the scalar to the device first,
+    one host-to-device copy a call on CUDA; ``new_full`` makes it there."""
+    x[idx] = x.new_full((), value)
 
 
 def _take(x, idx):
@@ -349,7 +370,7 @@ class Rollout:
         embed_cnt = _role(state, role, "embed_cnt")
         cur_t = torch.where(live, state.cur, self.t.num_nodes)
         embed_sum[bi, cur_t] = pano_fused
-        embed_cnt[bi, cur_t] = 1.0
+        _set_at(embed_cnt, (bi, cur_t), 1.0)
         idx = cand_ids.clamp(min=0)
         upd = cand_mask & ~state.visited.gather(1, idx) & live[:, None]
         rows = bi[:, None].expand_as(idx)
@@ -579,12 +600,17 @@ class Rollout:
 
     def transition(self, state: EpisodeBatch, gmap: dict, action, stop_prob,
                    t_step, pano: dict, ep: dict,
-                   local_actions: bool = False, feedback: str = "argmax"):
+                   local_actions: bool = False, feedback: str = "argmax",
+                   defer_observe: bool = False):
         """Record the stop probability, end episodes that stop, run out of
         frontier or of steps, and jump the rest to their target, facing
         along the last edge walked.  An episode stops on action 0 and, with
         ``teacher`` or ``sample`` feedback, also at its goal.  ``t_step``
         is the step index, an int or a [B] tensor of per-lane clocks.
+        ``defer_observe`` skips the arrival node's registration (the
+        observed-graph relax and ``_observe``): online serving
+        (``agent/serving.py``) runs it at the top of the next decision,
+        once the robot has reported the node's candidates.
         Returns the chosen target per row (-1 when not moving)."""
         t = self.t
         b = state.batch_size
@@ -651,11 +677,13 @@ class Rollout:
             turn, (view // 12 - 1).float() * (math.pi / 6), state.elevation)
 
         state.cur = torch.where(moving, target, state.cur)
-        state.visited[bi, torch.where(moving, state.cur, trash)] = True
+        _set_at(state.visited, (bi, torch.where(moving, state.cur, trash)),
+                True)
         state.ended = state.ended | just_ended
-        if self.parity:
-            relax_observed(state, t, state.cur, moving)
-        _observe(state, t)
+        if not defer_observe:
+            if self.parity:
+                relax_observed(state, t, state.cur, moving)
+            _observe(state, t)
         return torch.where(moving, target, -1)
 
     def _observed_next(self, state: EpisodeBatch, p, dcol, target):
@@ -742,11 +770,14 @@ class Rollout:
 
     def _model_step(self, model, role, state: EpisodeBatch, pano, gmap_base,
                     vp_base, txt_embeds, txt_masks, txt_kv,
-                    deterministic=True, generator=None):
+                    deterministic=True, generator=None, need_maps=False):
         """One model's part of a step: panorama forward, ``role``'s node
         embedding update, gmap/vp assembly, navigation forward and [MEM].
-        Returns (gmap, outs); ``outs`` also carries the panorama outputs."""
-        drop = {"deterministic": deterministic, "generator": generator}
+        Returns (gmap, outs); ``outs`` also carries the panorama outputs.
+        ``need_maps``: the caller reads the attention maps or gradients, so
+        attention stays off the packed kernel (the training rollout)."""
+        drop = {"deterministic": deterministic, "generator": generator,
+                "need_maps": need_maps}
         pano_embeds, pano_fused, img_attns = model.panorama(
             pano["view_img_fts"], pano["loc_fts"], pano["nav_types"],
             pano["pano_masks"], **drop)
@@ -770,16 +801,18 @@ class Rollout:
         return gmap, outs
 
     def step(self, state: EpisodeBatch, ep: dict, txt_embeds, txt_masks,
-             txt_kv, lane_t, feedback: str = "argmax", generator=None):
+             txt_kv, lane_t, feedback: str = "argmax", generator=None,
+             defer_observe: bool = False):
         """One evaluation step of every lane (state updated in place).
         ``lane_t``: the step index, an int, or a [B] tensor of per-lane
-        clocks (streaming, argmax only), wherever it has per-episode
-        meaning: the step-id stamp and the forced stop at
+        clocks (streaming, serving; argmax only), wherever it has
+        per-episode meaning: the step-id stamp and the forced stop at
         ``max_action_len - 1``.  ``generator``: the draws of ``sample`` and
-        ``expl_sample`` feedback.
+        ``expl_sample`` feedback.  ``defer_observe``: see ``transition``.
 
         Returns (chosen target per lane, -1 when not moving; lanes live at
-        the top of the step; lanes that ended in it)."""
+        the top of the step; lanes that ended in it; the action taken, a
+        gmap token index)."""
         live0 = self._stamp(state, lane_t)
         pano = self.assemble_pano(state)
         gmap_base = self.assemble_gmap_base(state, ep)
@@ -794,8 +827,8 @@ class Rollout:
                                     gmap)
         stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
         chosen = self.transition(state, gmap, action, stop_prob, lane_t, pano,
-                                 ep, self.local_acts, feedback)
-        return chosen, live0, state.ended & live0
+                                 ep, self.local_acts, feedback, defer_observe)
+        return chosen, live0, state.ended & live0, action
 
     def run(self, state: EpisodeBatch, txt_ids, txt_masks,
             feedback: str = "argmax", ensemble_n: int = 1, *, seed: int = 0,
@@ -855,8 +888,8 @@ class Rollout:
         actions, live_n = [], []
         for t_step in range(self.env.max_action_len):
             gen = self._generator(seed, t_step) if draws else None
-            chosen, live0, _ = self.step(state, ep, txt_embeds, txt_masks,
-                                         txt_kv, t_step, feedback, gen)
+            chosen, live0, _, _ = self.step(state, ep, txt_embeds, txt_masks,
+                                            txt_kv, t_step, feedback, gen)
             actions.append(chosen)
             live_n.append(live0.sum())
         return self._aux(state, actions, live_n)
@@ -891,8 +924,10 @@ class Rollout:
         if kdl and state.t_mem is None:
             raise ValueError("distillation needs the teacher's episode "
                              "state: build it with teacher_size")
+        # the training forwards read the attention maps (MAKD) and the
+        # gradients, which the forward-only packed kernel does not give
         drop = {"deterministic": deterministic,
-                "generator": self._generator(seed, -1)}
+                "generator": self._generator(seed, -1), "need_maps": True}
         c = SimpleNamespace(
             feedback=feedback, train_ml=train_ml, drop_off=deterministic,
             kdl=kdl, distill=distill, use_teacher_policy=use_teacher_policy,
@@ -948,7 +983,8 @@ class Rollout:
         teacher CE, t2s KD dict or None, s2t KD dict or None)."""
         state = state.copy_for_step()
         gen = self._generator(seed, t_step)
-        drop = {"deterministic": c.drop_off, "generator": gen}
+        drop = {"deterministic": c.drop_off, "generator": gen,
+                "need_maps": True}
         env = self.env
         live0 = self._stamp(state, t_step)
         pano = self.assemble_pano(state)

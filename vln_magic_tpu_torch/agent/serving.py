@@ -1,0 +1,954 @@
+"""Online step-at-a-time navigation serving (robot deployment).
+
+Port of ``vln_magic_tpu/agent/serving.py``:
+
+    server = NavServer(cfg, params, device="cuda")
+    server.warmup()                              # builds the CUDA kernels
+    sess = server.new_session(instr_tokens)      # one per episode
+    while True:
+        plan = sess.step(Observation(node=..., position=..., heading=...,
+                                     pano_feats=..., candidates=[...]))
+        if plan.stop:
+            break
+        # drive the robot along plan.path; observe at plan.target
+    final = sess.finish()   # stop-score backtrack (agent.py:1080-1095)
+
+A session builds its topological map from the robot's own observations:
+the information state of the reference's GraphMap (observed-graph parity,
+``agent/rollout.py`` ``relax_observed``), so observations replayed from a
+world give the decisions of the offline parity rollout.  ``NavFleet``
+advances K sessions in one batched step per control tick.
+
+What crosses between host and device.  The host keeps each session's map
+as small numpy mirrors; the device keeps the episode state, the language
+encoding and a feature bank of 36 view rows per node.  Every
+host-to-device copy of the serving loop goes through ``NavServer._upload``
+(a restore copies the blob's arrays besides):
+
+- a session start (or a fleet join) makes one host-to-device copy, the
+  instruction's ids and mask as one int64 buffer;
+- a decision, or a fleet tick for all K lanes, makes one host-to-device
+  copy, an f32 buffer [K, 7 + P + 36 D] holding each lane's control values
+  (submit, is_first, moved, node, heading, step, feature row index:
+  ``CTL``), its packed mirrors (P values) and its arrival node's feature
+  row, which is written into the bank in place; and one device-to-host
+  copy, the packed int64 result;
+- ``finish`` makes one copy each way.
+
+Episode state is updated in place, as the evaluation step does; a fleet
+tick runs on ``EpisodeBatch.copy_for_step`` and merges lane by lane, so a
+lane that does not submit comes back bit for bit.
+
+Formats (torch counterparts of JAX's, which this package cannot read):
+
+- *Session blob*: one ``.npz`` (``np.savez``, read with
+  ``allow_pickle=False``) with JAX's keys: ``instr``, ``state.<field>``
+  per ``EpisodeBatch`` field, ``features`` [1, n, 36, D] with any row still
+  queued folded in, ``mirrors.<name>``, ``names``, ``traj``, ``t_step``,
+  ``last_moved``, ``cur``, ``ended``.  ``state.scan`` is 0, so a blob from
+  a fleet slot restores on a server and the other way round.
+- *Bundle*: a directory with ``meta.json`` (``BUNDLE_FORMAT``, the config,
+  the node and candidate budgets, ``quantized``, the torch and CUDA
+  versions and the exporting device) and ``params.npz`` (flat flax names;
+  int8 leaves as ``<name>.__int8__``, ``<name>.scale``, ``<name>.dtype``).
+  It holds no compiled program: the kernels build from the package's
+  sources at first use, which ``warmup`` pays.
+
+One thread drives a server: a decision points the shared rollout at the
+session's tables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import MagicConfig, config_from_dict, config_to_dict
+from ..env import geometry as geo
+from ..models.vlnbert import DualScaleVLNBert
+from ..utils import quantize as Q
+from ..utils.device import resolve_device
+from ..utils.weights import export_flax_params, load_flax_params
+from .rollout import (EpisodeBatch, Rollout, Tables, _observe, init_episodes,
+                      relax_observed, select_lanes)
+from .streaming import _map_kv
+
+__all__ = ["Candidate", "Observation", "NavDecision", "observation_from_world",
+           "NavServer", "NavSession", "FleetSession", "NavFleet",
+           "BUNDLE_FORMAT"]
+
+BUNDLE_FORMAT = "vln_magic_tpu_torch.serving_bundle.v1"
+# columns of the control block at the head of each lane's upload row
+CTL = ("submit", "is_first", "moved", "node", "heading", "t_step", "feat_v")
+(SUBMIT, IS_FIRST, MOVED, NODE, HEADING, T_STEP, FEAT_V) = range(len(CTL))
+
+
+@dataclasses.dataclass
+class Candidate:
+    """A navigable neighbor visible from the current node.
+
+    ``view``: discretized 30-degree view index (0..35) the neighbor is
+    visible in; synthesized from the relative geometry when None (the
+    nearest-view rule of the offline world builder, env/world.py).
+    ``dist``: traversal distance of the edge (odometry / connectivity).
+    """
+
+    node: str
+    position: tuple[float, float, float]
+    dist: float
+    heading: float | None = None      # absolute heading cur -> node
+    elevation: float | None = None
+    view: int | None = None
+
+
+@dataclasses.dataclass
+class Observation:
+    """What the robot reports on arriving at a node.  ``heading`` is only
+    read at episode start (afterwards the session tracks pose through its
+    own transitions, as the offline rollout does)."""
+
+    node: str
+    position: tuple[float, float, float]
+    heading: float
+    pano_feats: np.ndarray            # [36, D] view features (CLIP)
+    candidates: list[Candidate]
+
+
+@dataclasses.dataclass
+class NavDecision:
+    stop: bool
+    target: str | None                # chosen map node (None when stopping)
+    path: list[str]                   # planned hops cur -> target (incl.)
+    action_index: int                 # raw gmap-token action
+    latency_ms: float                 # wall time of this decision
+
+
+def observation_from_world(world, scan_idx: int, v: int,
+                           heading: float) -> Observation:
+    """Replay client: what a robot standing at node ``v`` of an offline
+    ``env.world.World`` would report.  A deployment builds
+    :class:`Observation` from live sensors instead.  Sessions intern nodes
+    in observation order, so map names back with ``world.graphs[s].index``."""
+    t = world.tables
+    g = world.graphs[scan_idx]
+    cands = []
+    for j in range(t.cand_ids.shape[2]):
+        if not t.cand_mask[scan_idx, v, j]:
+            continue
+        ci = int(t.cand_ids[scan_idx, v, j])
+        cands.append(Candidate(
+            node=g.node_ids[ci],
+            position=tuple(t.positions[scan_idx, ci]),
+            dist=float(t.cand_dist[scan_idx, v, j]),
+            heading=float(t.cand_heading[scan_idx, v, j]),
+            elevation=float(t.cand_elevation[scan_idx, v, j]),
+            view=int(t.cand_view[scan_idx, v, j])))
+    return Observation(
+        node=g.node_ids[v], position=tuple(t.positions[scan_idx, v]),
+        heading=heading,
+        pano_feats=np.asarray(t.features[scan_idx, v], np.float32),
+        candidates=cands)
+
+
+class NavServer:
+    """Serving endpoint: owns the model and the step's parts, shared by
+    every session.
+
+    ``params``: flat flax names (``utils.weights.load_flax_params``), or
+    ``model``: an existing ``DualScaleVLNBert`` on ``device``, used as it
+    is; give one of the two.  ``cfg.env.observed_graph_parity`` is forced
+    on.  ``max_nodes`` defaults from ``cfg.env.max_gmap_len`` minus the
+    [stop]/[mem] slots, the dataset's own node budget.  ``device`` defaults
+    to ``"cuda"`` and raises without a GPU unless ``"cpu"`` is asked for.
+    """
+
+    def __init__(self, cfg: MagicConfig, params=None,
+                 max_nodes: int | None = None, max_cands: int = 10,
+                 model: DualScaleVLNBert | None = None, device="cuda"):
+        self.cfg = cfg = dataclasses.replace(
+            cfg, env=dataclasses.replace(cfg.env, observed_graph_parity=True))
+        self.device = resolve_device(device)
+        if (params is None) == (model is None):
+            raise ValueError("NavServer takes params (flat flax names) or "
+                             "a model, one of the two")
+        if model is None:
+            model = DualScaleVLNBert(
+                cfg.model, dtype=getattr(torch, cfg.train.compute_dtype),
+                device=self.device)
+            load_flax_params(model, params)
+        elif next(model.parameters()).device.type != self.device.type:
+            raise ValueError(f"model on {next(model.parameters()).device}, "
+                             f"server on {self.device}")
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        if max_nodes is None:
+            max_nodes = max(cfg.env.max_gmap_len - 2, 2)
+        n = self.n = max_nodes
+        c = self.c = max_cands
+        self.d = cfg.model.image_feat_size
+        # the packed mirrors: positions, distances, then five candidate
+        # tables (ids, dist, view, heading, elevation); ints exact in f32
+        sizes = [n * 3, n * n] + [n * c] * 5
+        self._off = np.cumsum([0] + sizes)
+        self._width = len(CTL) + int(self._off[-1]) + 36 * self.d
+        self.rollout = Rollout(
+            self._blank_tables(self._new_bank(1)), cfg.env, model)
+
+    # ---- host <-> device ------------------------------------------------
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """The one host-to-device copy of a session start, decision, tick or
+        finish.  On the card it goes through pinned memory (PyTorch's
+        caching host allocator keeps the block until the copy is done) as
+        one asynchronous DMA copy."""
+        x = torch.from_numpy(np.ascontiguousarray(host))
+        if self.device.type != "cuda":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
+
+    def _host(self, k: int) -> np.ndarray:
+        """A zeroed [k, width] upload: empty mirrors (candidate ids -1) and
+        no feature row (``FEAT_V`` = n, the bank's trash row)."""
+        host = np.zeros((k, self._width), np.float32)
+        p = len(CTL) + self._off
+        host[:, p[2]:p[3]] = -1
+        host[:, FEAT_V] = self.n
+        return host
+
+    def _fill(self, lane: np.ndarray, ctl: dict, mirrors: np.ndarray, pending):
+        """One lane's upload row: control values, mirrors, queued row."""
+        for name, val in ctl.items():
+            lane[CTL.index(name)] = val
+        p = len(CTL)
+        lane[p:p + self._off[-1]] = mirrors
+        if pending is not None:
+            lane[FEAT_V] = pending[0]
+            lane[p + self._off[-1]:] = pending[1].ravel()
+
+    def _new_bank(self, k: int) -> torch.Tensor:
+        """A feature bank [k, n + 1, 36, D] f32; row n is the trash row
+        that a lane with no new feature row writes."""
+        return torch.zeros((k, self.n + 1, 36, self.d), dtype=torch.float32,
+                           device=self.device)
+
+    # ---- the device side ------------------------------------------------
+
+    def _split(self, buf):
+        """An upload [k, width] as (control [k, 7], mirrors [k, P], feature
+        rows [k, 36, D])."""
+        p = len(CTL) + int(self._off[-1])
+        return (buf[:, :len(CTL)], buf[:, len(CTL):p],
+                buf[:, p:].reshape(buf.shape[0], 36, self.d))
+
+    @staticmethod
+    def _write_rows(bank, ctl, rows):
+        """Each lane's arrival feature row into its bank, in place."""
+        k = bank.shape[0]
+        bank[torch.arange(k, device=bank.device), ctl[:, FEAT_V].long()] = rows
+
+    def _unpack_tables(self, packed, bank) -> Tables:
+        """Per-lane packed mirrors [k, P] -> ``Tables`` with the lane as the
+        scan axis (each session owns its map); JAX's ``_unpack_tables`` and
+        ``_unpack_fleet``.  steps/next_hop are unread in parity mode."""
+        n, c, off = self.n, self.c, self._off
+        k = packed.shape[0]
+        part = lambda i, shape: packed[:, off[i]:off[i + 1]].reshape(
+            (k,) + shape)
+        cand_ids = part(2, (n, c)).long()
+        unread = torch.zeros((), dtype=torch.int64,
+                             device=packed.device).expand(k, n, n)
+        return Tables(
+            node_mask=torch.ones((k, n), dtype=torch.bool,
+                                 device=packed.device),
+            positions=part(0, (n, 3)), dist=part(1, (n, n)),
+            steps=unread, next_hop=unread, cand_ids=cand_ids,
+            cand_dist=part(3, (n, c)), cand_view=part(4, (n, c)).long(),
+            cand_heading=part(5, (n, c)), cand_elevation=part(6, (n, c)),
+            cand_mask=cand_ids >= 0, features=bank[:, :n])
+
+    def _blank_tables(self, bank) -> Tables:
+        """Tables of k empty maps, made on the device."""
+        k = bank.shape[0]
+        packed = torch.zeros((k, int(self._off[-1])), device=self.device)
+        packed[:, self._off[2]:self._off[3]] = -1
+        return self._unpack_tables(packed, bank)
+
+    @torch.no_grad()
+    def _lang(self, ids_buf):
+        """The instruction encoding from an uploaded [2, L] int64 buffer
+        (ids, mask): (text embeddings [1, L, H], mask [1, L], the hoisted
+        cross-layer K/V or None)."""
+        ids, mask = ids_buf[0:1], ids_buf[1:2].bool()
+        emb, _ = self.model.language(ids, mask)
+        kv = (self.model.text_cross_kv(emb) if self.cfg.model.hoist_text_kv
+              else None)
+        return emb, mask, kv
+
+    def _decide_core(self, tables, state, t_step, txt):
+        """The step: step-id stamp -> assembly -> model -> argmax ->
+        transition, with the arrival registration deferred to the next
+        decision (``Rollout.transition(defer_observe=True)``).  Returns one
+        packed int64 row per lane: [chosen, ended, action, traj_len,
+        traj_nodes...]."""
+        r = self.rollout
+        r.t = tables
+        chosen, _, just_ended, action = r.step(
+            state, r.episode_tables(state), *txt, t_step,
+            defer_observe=True)
+        return torch.cat([torch.stack([chosen, just_ended.long(), action,
+                                       state.traj_len], dim=1),
+                          state.traj_nodes], dim=1)
+
+    @torch.no_grad()
+    def _first(self, buf, bank, txt):
+        """Episode start and the first decision (the offline rollout's
+        ``init_episodes`` and step 0).  The goal is unknown when serving
+        and never read under argmax."""
+        ctl, packed, rows = self._split(buf)
+        self._write_rows(bank, ctl, rows)
+        tables = self._unpack_tables(packed, bank)
+        v = ctl[:, NODE].long()
+        state = init_episodes(tables, torch.zeros_like(v), v, ctl[:, HEADING],
+                              v[:, None], torch.ones_like(v),
+                              self.cfg.model.hidden_size,
+                              observed_parity=True)
+        return state, self._decide_core(tables, state, 0, txt)
+
+    @torch.no_grad()
+    def _next(self, buf, bank, state, t_step, txt):
+        """The arrival registration the previous decision deferred, then a
+        decision, on ``state`` in place."""
+        ctl, packed, rows = self._split(buf)
+        self._write_rows(bank, ctl, rows)
+        tables = self._unpack_tables(packed, bank)
+        relax_observed(state, tables, state.cur, ctl[:, MOVED] > 0)
+        _observe(state, tables)
+        return self._decide_core(tables, state, t_step, txt)
+
+    @torch.no_grad()
+    def _finish_traj(self, packed, bank, state):
+        """Backtrack to the best stop-score node: [stop node, traj_len,
+        traj_nodes...] per lane."""
+        r = self.rollout
+        r.t = self._unpack_tables(packed, bank)
+        stop = r.final_stop_node(state)
+        nodes, ln = r.record_backtrack(state, stop)
+        return torch.cat([stop[:, None], ln[:, None], nodes], dim=1)
+
+    # ---- sessions -------------------------------------------------------
+
+    def new_session(self, instr_encoding) -> "NavSession":
+        return NavSession(self, np.asarray(instr_encoding))
+
+    def warmup(self):
+        """Run every per-step path once before the first real episode:
+        the first call builds the CUDA kernels (nvcc) and sets up cuBLAS,
+        which a robot must not pay mid-episode.  Without the second call an
+        episode that stops at step 0 would leave the next-step path cold."""
+        sess = self.new_session(np.zeros((4,), np.int64))
+        sess.step(Observation("__warm0", (0.0, 0.0, 0.0), 0.0,
+                              np.zeros((36, self.d), np.float32),
+                              [Candidate("__warm1", (1.0, 0.0, 0.0), 1.0)]))
+        host = self._host(1)
+        self._fill(host[0], {"submit": 1, "moved": 1, "node": sess._cur},
+                   sess._pack_mirrors(), None)
+        self._next(self._upload(host), sess._features, sess.state, 1,
+                   sess._txt)
+        sess.finish()
+
+    # ---- deployment bundles ---------------------------------------------
+
+    def export_bundle(self, path: str, quantize: bool = False):
+        """Write a deployment directory: ``meta.json`` and ``params.npz``
+        (module docstring).  ``quantize`` stores the weights per-channel
+        int8 (``utils.quantize``, the values JAX's bundle holds) for a file
+        about a quarter the size; ``from_bundle`` dequantizes at load, so
+        only the weights carry the rounding."""
+        os.makedirs(path, exist_ok=True)
+        flat = export_flax_params(self.model)
+        if quantize:
+            flat = Q.flatten(Q.quantize_params(flat))
+        with open(os.path.join(path, "params.npz"), "wb") as f:
+            np.savez(f, **flat)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({
+                "format": BUNDLE_FORMAT,
+                "config": config_to_dict(self.cfg),
+                "max_nodes": self.n, "max_cands": self.c,
+                "quantized": bool(quantize),
+                "torch_version": torch.__version__,
+                "cuda_version": torch.version.cuda,
+                "device": (torch.cuda.get_device_name(self.device)
+                           if self.device.type == "cuda" else "cpu"),
+            }, f, indent=2)
+
+    @classmethod
+    def from_bundle(cls, path: str, device="cuda", **kw):
+        """A server (or, on ``NavFleet``, a fleet; ``kw`` its other
+        arguments) from an ``export_bundle`` directory.  A JAX bundle
+        (``vln_magic_tpu.serving_bundle.*``) raises ``ValueError``."""
+        meta_path = os.path.join(path, "meta.json")
+        if not os.path.exists(meta_path):
+            raise ValueError(f"not a serving bundle: {path} has no meta.json")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        fmt = meta.get("format")
+        if fmt != BUNDLE_FORMAT:
+            if isinstance(fmt, str) and \
+                    fmt.startswith("vln_magic_tpu.serving_bundle."):
+                raise ValueError(
+                    f"{path} is a JAX serving bundle ({fmt}): its programs "
+                    f"are serialized StableHLO, which has no PyTorch "
+                    f"runtime, and its weights are flax msgpack.  Export a "
+                    f"{BUNDLE_FORMAT} bundle with this package's "
+                    f"NavServer.export_bundle")
+            raise ValueError(f"not a serving bundle: {path} has format "
+                             f"{fmt!r}, this package reads {BUNDLE_FORMAT}")
+        params = Q.load_quantized(os.path.join(path, "params.npz"))
+        return cls(config_from_dict(meta["config"]), params,
+                   max_nodes=int(meta["max_nodes"]),
+                   max_cands=int(meta["max_cands"]), device=device, **kw)
+
+
+class NavSession:
+    """One episode's online state: host mirrors of the map, the device
+    episode state and feature bank, and the trajectory record.  Create with
+    :meth:`NavServer.new_session`."""
+
+    def __init__(self, server: NavServer, instr_encoding):
+        self.server = server
+        self._init_host(server, instr_encoding)
+        self._features = server._new_bank(1)
+        self._pending_row: tuple[int, np.ndarray] | None = None
+        self._txt = server._lang(server._upload(self._instr_buf()))
+        self.state: EpisodeBatch | None = None
+
+    def _init_host(self, server: NavServer, instr_encoding):
+        self.cfg = server.cfg
+        self._instr = np.asarray(instr_encoding)
+        n, c = self.n, self.c = server.n, server.c
+        self.h_pos = np.zeros((n, 3), np.float32)
+        self.h_cand_ids = np.full((n, c), -1, np.int32)
+        self.h_cand_dist = np.zeros((n, c), np.float32)
+        self.h_cand_view = np.zeros((n, c), np.int32)
+        self.h_cand_heading = np.zeros((n, c), np.float32)
+        self.h_cand_elev = np.zeros((n, c), np.float32)
+        self.h_dist = np.zeros((n, n), np.float32)
+        self._ids: dict[str, int] = {}
+        self._names: list[str] = []
+        self.t_step = 0
+        self._last_moved = False
+        self._cur = -1            # host-tracked current node index
+        self._started = False
+        self._ended = False
+        self._traj: list[str] = []
+
+    def _instr_buf(self) -> np.ndarray:
+        """[2, L] int64: the ids padded to ``max_instr_len`` with 1, and
+        the mask."""
+        L = self.cfg.env.max_instr_len
+        buf = np.zeros((2, L), np.int64)
+        buf[0] = 1
+        enc = self._instr[:L]
+        buf[0, :len(enc)] = enc
+        buf[1, :len(enc)] = 1
+        return buf
+
+    # ---- world ingestion ------------------------------------------------
+
+    def _intern(self, name: str) -> int:
+        if name not in self._ids:
+            self._ids[name] = len(self._names)
+            self._names.append(name)
+        return self._ids[name]
+
+    def _pack_mirrors(self) -> np.ndarray:
+        """The mirrors as one f32 vector (ints exact in f32 below 2^24)."""
+        return np.concatenate([
+            self.h_pos.ravel(), self.h_dist.ravel(),
+            self.h_cand_ids.astype(np.float32).ravel(),
+            self.h_cand_dist.ravel(),
+            self.h_cand_view.astype(np.float32).ravel(),
+            self.h_cand_heading.ravel(), self.h_cand_elev.ravel()])
+
+    def _check(self, obs: Observation):
+        """Reject an observation before anything changes: one at another
+        node than the session's current one, too many candidates, features
+        of the wrong shape, or more nodes than ``max_nodes``."""
+        if self._started and obs.node != self._names[self._cur]:
+            raise ValueError(
+                f"observation at '{obs.node}' but the session's current "
+                f"node is '{self._names[self._cur]}'")
+        if len(obs.candidates) > self.c:
+            raise ValueError(
+                f"{len(obs.candidates)} candidates > max_cands={self.c}")
+        shape = np.shape(obs.pano_feats)
+        if shape != (36, self.cfg.model.image_feat_size):
+            raise ValueError(f"pano_feats must be [36, "
+                             f"{self.cfg.model.image_feat_size}], got {shape}")
+        new = {obs.node, *(cand.node for cand in obs.candidates)}
+        if len(self._names) + len(new - self._ids.keys()) > self.n:
+            raise ValueError(
+                f"max_nodes={self.n} exhausted; raise NavServer max_nodes "
+                f"for larger deployment sites")
+
+    def _ingest(self, obs: Observation) -> int:
+        """Fold a checked observation into the mirrors and queue its
+        feature row."""
+        v = self._intern(obs.node)
+        self.h_pos[v] = np.asarray(obs.position, np.float32)
+        ids, dists, views, heads, elevs = [], [], [], [], []
+        for cand in obs.candidates:
+            ci = self._intern(cand.node)
+            self.h_pos[ci] = np.asarray(cand.position, np.float32)
+            h, e = cand.heading, cand.elevation
+            if h is None or e is None:
+                h, e, _ = geo.rel_pos_features(self.h_pos[v], self.h_pos[ci])
+                h, e = float(h), float(e)
+            view = cand.view if cand.view is not None else int(
+                geo.nearest_view_index(h, e))
+            ids.append(ci)
+            dists.append(float(cand.dist))
+            views.append(view)
+            heads.append(h)
+            elevs.append(e)
+            # symmetric edge weight for the observed-subgraph relax
+            # (rollout.relax_observed reads t.dist[scan, v, cand])
+            self.h_dist[v, ci] = self.h_dist[ci, v] = float(cand.dist)
+            self._reverse_fill(ci, v, float(cand.dist))
+        m = len(ids)
+        self.h_cand_ids[v] = -1
+        self.h_cand_ids[v, :m] = ids
+        self.h_cand_dist[v, :m] = dists
+        self.h_cand_view[v, :m] = views
+        self.h_cand_heading[v, :m] = heads
+        self.h_cand_elev[v, :m] = elevs
+        self._put_feature_row(v, np.asarray(obs.pano_feats, np.float32))
+        return v
+
+    def _put_feature_row(self, v: int, row: np.ndarray):
+        # queued for the next decision's upload; each decision ingests one
+        # observation, so one slot is exact
+        self._pending_row = (v, row)
+
+    def _reverse_fill(self, frm: int, to: int, dist: float):
+        """Record the reverse edge ``frm -> to`` so the observed-graph walk
+        can route through frontier nodes (offline, the complete world tables
+        carry every node's candidate row; the walk only uses edges with a
+        visited endpoint, and those are exactly the reverse edges of
+        reported candidates when connectivity is symmetric)."""
+        row = self.h_cand_ids[frm]
+        if (row == to).any():
+            return
+        free = np.flatnonzero(row < 0)
+        if len(free) == 0:
+            return   # row full: the node was (or will be) directly observed
+        j = free[0]
+        h, e, _ = geo.rel_pos_features(self.h_pos[frm], self.h_pos[to])
+        self.h_cand_ids[frm, j] = to
+        self.h_cand_dist[frm, j] = dist
+        self.h_cand_view[frm, j] = int(geo.nearest_view_index(h, e))
+        self.h_cand_heading[frm, j] = float(h)
+        self.h_cand_elev[frm, j] = float(e)
+
+    def _record(self, out: np.ndarray, obs: Observation, pre_len: int,
+                latency_ms: float) -> NavDecision:
+        """Advance the host record by one decision's packed result."""
+        chosen, ended, action, traj_len = (int(x) for x in out[:4])
+        if not self._traj:
+            self._traj = [obs.node]
+        self.t_step += 1
+        self._last_moved = chosen >= 0
+        self._ended = bool(ended) or chosen < 0
+        path = []
+        if chosen >= 0:
+            self._cur = chosen
+            path = [self._names[i] for i in out[4 + pre_len:4 + traj_len]]
+            self._traj.extend(path)
+        elif self._cur < 0:
+            self._cur = self._ids[obs.node]
+        return NavDecision(
+            stop=self._ended,
+            target=self._names[chosen] if chosen >= 0 else None,
+            path=path, action_index=action, latency_ms=latency_ms)
+
+    # ---- control-loop API -----------------------------------------------
+
+    def step(self, obs: Observation) -> NavDecision:
+        """One decision: ingest the robot's observation at its current node,
+        run the step, return the plan."""
+        t0 = time.perf_counter()
+        if self._ended:
+            raise RuntimeError("episode already ended; call finish()")
+        self._check(obs)
+        v = self._ingest(obs)
+        server = self.server
+        host = server._host(1)
+        first = not self._started
+        server._fill(host[0], {"submit": 1, "is_first": first,
+                               "moved": self._last_moved, "node": v,
+                               "heading": obs.heading,
+                               "t_step": self.t_step},
+                     self._pack_mirrors(), self._pending_row)
+        buf = server._upload(host)
+        pre_len = max(len(self._traj), 1)
+        if first:
+            state, out = server._first(buf, self._features, self._txt)
+        else:
+            state = self.state
+            out = server._next(buf, self._features, state, self.t_step,
+                               self._txt)
+        out = out[0].cpu().numpy()       # the one device-to-host copy
+        self.state, self._started = state, True
+        self._pending_row = None
+        return self._record(out, obs, pre_len,
+                            (time.perf_counter() - t0) * 1000.0)
+
+    def finish(self) -> dict:
+        """Backtrack to the best stop-score node (agent.py:1080-1095) and
+        return the final trajectory record."""
+        if not self._started:
+            raise RuntimeError("no steps taken")
+        return self._final(self.server._finish_traj(
+            self.server._upload(self._pack_mirrors()[None]), self._features,
+            self.state)[0].cpu().numpy())
+
+    def _final(self, out: np.ndarray) -> dict:
+        stop_node, tl = int(out[0]), int(out[1])
+        backtrack = [self._names[i] for i in out[2 + len(self._traj):2 + tl]]
+        return {"stop_node": self._names[stop_node],
+                "trajectory": self._traj + backtrack, "steps": self.t_step}
+
+    # ---- crash recovery -------------------------------------------------
+
+    def save(self, path: str):
+        """Write the session blob (module docstring) so that a crashed
+        control process resumes the episode where it stopped."""
+        self._write_blob(path, _with_pending(self._features, self.n,
+                                             self._pending_row),
+                         self.state)
+
+    def _write_blob(self, path: str, features: np.ndarray, state):
+        blob = {"instr": self._instr, "features": features,
+                "names": np.asarray(self._names, dtype=str),
+                "traj": np.asarray(self._traj, dtype=str),
+                "t_step": np.int64(self.t_step),
+                "last_moved": np.bool_(self._last_moved),
+                "cur": np.int64(self._cur), "ended": np.bool_(self._ended)}
+        for name, arr in self._mirrors().items():
+            blob[f"mirrors.{name}"] = arr
+        if state is not None:
+            for f in dataclasses.fields(EpisodeBatch):
+                x = getattr(state, f.name)
+                if x is not None:
+                    blob[f"state.{f.name}"] = x.cpu().numpy()
+        with open(path, "wb") as f:
+            np.savez(f, **blob)
+
+    def _mirrors(self) -> dict:
+        return {"pos": self.h_pos, "dist": self.h_dist,
+                "cand_ids": self.h_cand_ids, "cand_dist": self.h_cand_dist,
+                "cand_view": self.h_cand_view,
+                "cand_heading": self.h_cand_heading,
+                "cand_elev": self.h_cand_elev}
+
+    def _restore_host(self, blob: dict):
+        for name, arr in self._mirrors().items():
+            got = blob[f"mirrors.{name}"]
+            if got.shape != arr.shape:
+                raise ValueError(f"session blob mirror {name} is "
+                                 f"{got.shape}, this server's {arr.shape} "
+                                 f"(max_nodes={self.n}, max_cands={self.c})")
+            arr[:] = got
+        self._names = [str(x) for x in blob["names"]]
+        self._ids = {nm: i for i, nm in enumerate(self._names)}
+        self._traj = [str(x) for x in blob["traj"]]
+        self.t_step = int(blob["t_step"])
+        self._last_moved = bool(blob["last_moved"])
+        self._cur = int(blob["cur"])
+        self._ended = bool(blob["ended"])
+
+    @classmethod
+    def restore(cls, server: NavServer, path: str) -> "NavSession":
+        """A session from a blob that :meth:`save` or
+        :meth:`FleetSession.save` wrote, on a (re)started server.  The
+        instruction is encoded again; everything else is restored as
+        saved."""
+        blob = _read_blob(path, server)
+        sess = cls(server, blob["instr"])
+        sess._restore_host(blob)
+        sess._features[:, :server.n] = torch.from_numpy(blob["features"])
+        sess.state = _state_from_blob(blob, server.device)
+        sess._started = sess.state is not None
+        return sess
+
+
+def _read_blob(path: str, server: NavServer) -> dict:
+    with np.load(path, allow_pickle=False) as f:
+        blob = {k: f[k] for k in f.files}
+    want = (1, server.n, 36, server.d)
+    if blob["features"].shape != want:
+        raise ValueError(f"session blob features are "
+                         f"{blob['features'].shape}, this server's {want}")
+    return blob
+
+
+def _state_from_blob(blob: dict, device) -> EpisodeBatch | None:
+    fields = {k[len("state."):]: torch.from_numpy(v).to(device)
+              for k, v in blob.items() if k.startswith("state.")}
+    return EpisodeBatch(**fields) if fields else None
+
+
+def _with_pending(bank, n: int, pending) -> np.ndarray:
+    """One lane's feature rows [1, n, 36, D] from its bank, with a row
+    queued for the next upload applied."""
+    ft = bank[:, :n].cpu().numpy().copy()
+    if pending is not None:
+        v, row = pending
+        ft[0, v] = row
+    return ft
+
+
+class FleetSession(NavSession):
+    """One slot of a :class:`NavFleet`: host mirrors as a standalone
+    session's, device state, features and instruction in the fleet's
+    batched buffers.  Obtain with :meth:`NavFleet.join`; drive with
+    :meth:`NavFleet.step` (batched) or this object's ``step`` (a one-slot
+    tick)."""
+
+    def __init__(self, fleet: "NavFleet", slot: int, instr_encoding):
+        self.fleet = fleet
+        self.slot = slot
+        self.server = fleet
+        self._init_host(fleet, instr_encoding)
+        fleet._join_slot(slot, fleet._upload(self._instr_buf()))
+        self.state = None              # the device state lives on the fleet
+
+    def _put_feature_row(self, v: int, row: np.ndarray):
+        # queued for the next tick's upload, keyed by slot: a session
+        # observes one node per tick
+        self.fleet._pending_rows[self.slot] = (v, row)
+
+    def step(self, obs: Observation) -> NavDecision:
+        return self.fleet.step({self.slot: obs})[self.slot]
+
+    def finish(self) -> dict:
+        return self.fleet.finish(self.slot)
+
+    def save(self, path: str):
+        """The slot's episode in the standalone blob format: the lane's
+        state and feature rows out of the fleet's buffers, ``state.scan``
+        0, any row still queued folded in.  It restores on a fresh
+        :class:`NavFleet` (``restore_session``) or a :class:`NavServer`
+        (``NavSession.restore``)."""
+        f = self.fleet
+        self._write_blob(path, _slot_features_with_pending(f, self.slot),
+                         f._lane_state(self.slot) if self._started else None)
+
+
+def _slot_features_with_pending(fleet: "NavFleet", slot: int) -> np.ndarray:
+    """One slot's feature rows in the standalone [1, n, 36, D] layout, with
+    any row queued for the next tick applied."""
+    return _with_pending(fleet._features[slot:slot + 1], fleet.n,
+                         fleet._pending_rows.get(slot))
+
+
+class NavFleet(NavServer):
+    """Batched serving: ``slots`` concurrent episodes advance in one
+    batched step per control tick, which pays the host's per-step cost
+    once for K robots.
+
+    Synchronous ticks: every session with an observation is stepped
+    together; sessions at different phases coexist (per-lane ``is_first``
+    and step clocks).  Lanes that do not submit are frozen: the tick runs
+    on a copy of the state and merges lane by lane.  Decisions equal K
+    standalone sessions' (tests/test_torch_fleet.py).  A tick makes one
+    host-to-device copy and one device-to-host copy (module docstring).
+
+    ``max_feature_gb`` bounds the feature bank, slots x (max_nodes + 1) x
+    36 x D f32, the fleet's largest buffer: the node budget defaults from
+    the config, so a large ``max_gmap_len`` cannot allocate gigabytes by
+    surprise."""
+
+    def __init__(self, cfg: MagicConfig, params=None, slots: int = 8,
+                 max_nodes: int | None = None, max_cands: int = 10,
+                 model: DualScaleVLNBert | None = None,
+                 max_feature_gb: float = 8.0, device="cuda"):
+        super().__init__(cfg, params, max_nodes=max_nodes,
+                         max_cands=max_cands, model=model, device=device)
+        n, d = self.n, self.d
+        feat_gb = slots * (n + 1) * 36 * d * 4 / 1e9
+        if feat_gb > max_feature_gb:
+            raise ValueError(
+                f"NavFleet feature bank would be {feat_gb:.3f} GB "
+                f"(slots={slots} x (max_nodes={n} + 1) x 36 views x "
+                f"feat={d} f32) > max_feature_gb={max_feature_gb}; lower "
+                f"slots/max_nodes/image_feat_size or pass a larger "
+                f"max_feature_gb if the card has the memory for it")
+        self.k = slots
+        self._features = self._new_bank(slots)
+        self._txt = None               # (embeddings, masks, K/V), [K, ...]
+        self._state: EpisodeBatch | None = None
+        self._sessions: dict[int, FleetSession] = {}
+        # feature rows observed since the last tick, by slot; cleared once
+        # a tick has returned, so a failed tick keeps them for a save
+        self._pending_rows: dict[int, tuple[int, np.ndarray]] = {}
+
+    def _join_slot(self, slot: int, ids_buf):
+        """Encode the instruction into the slot's text buffers, in place."""
+        emb, mask, kv = self._lang(ids_buf)
+        if self._txt is None:
+            grow = lambda x: x.new_zeros((self.k,) + x.shape[1:])
+            self._txt = (grow(emb), grow(mask), _map_kv(kv, grow))
+        txt_buf, mask_buf, kv_buf = self._txt
+        txt_buf[slot] = emb[0]
+        mask_buf[slot] = mask[0]
+        _map_kv(kv_buf, lambda buf, x: buf[slot].copy_(x[0]), kv)
+
+    def _empty_state(self) -> EpisodeBatch:
+        """The all-lanes holder before any lane has started: every lane
+        ended until it submits."""
+        tables = self._blank_tables(self._features)
+        zeros = torch.zeros(self.k, dtype=torch.int64, device=self.device)
+        state = init_episodes(tables, torch.arange(self.k, device=self.device),
+                              zeros, zeros.float(), zeros[:, None],
+                              torch.ones_like(zeros),
+                              self.cfg.model.hidden_size,
+                              observed_parity=True)
+        state.ended = torch.ones_like(state.ended)
+        return state
+
+    def _lane_state(self, slot: int) -> EpisodeBatch:
+        """Lane ``slot`` of the fleet state as a one-lane state with
+        ``scan`` 0, the standalone layout."""
+        lane = EpisodeBatch(**{
+            f.name: (None if getattr(self._state, f.name) is None
+                     else getattr(self._state, f.name)[slot:slot + 1].clone())
+            for f in dataclasses.fields(EpisodeBatch)})
+        lane.scan = torch.zeros_like(lane.scan)
+        return lane
+
+    @torch.no_grad()
+    def _tick(self, buf, state, any_first: bool):
+        """One step for every submitting lane: this tick's feature rows
+        into the bank, episode init of the lanes that start
+        (``is_first``), the deferred arrival registration, the decision.
+        Returns (the merged state, the packed result [K, ...]); ``state``
+        is not written."""
+        ctl, packed, rows = self._split(buf)
+        self._write_rows(self._features, ctl, rows)
+        tables = self._unpack_tables(packed, self._features)
+        submit, is_first = ctl[:, SUBMIT] > 0, ctl[:, IS_FIRST] > 0
+        if any_first:
+            v = ctl[:, NODE].long()
+            fresh = init_episodes(
+                tables, torch.arange(self.k, device=self.device), v,
+                ctl[:, HEADING], v[:, None], torch.ones_like(v),
+                self.cfg.model.hidden_size, observed_parity=True)
+            state = select_lanes(is_first, fresh, state)
+        # the step writes its state in place: run it on a copy whose lanes
+        # that do not submit are ended (everything gates on ~ended), then
+        # take the submitting lanes back
+        eff = state.copy_for_step()
+        eff.ended = state.ended | ~submit
+        arrival = submit & (ctl[:, MOVED] > 0) & ~is_first & ~state.ended
+        relax_observed(eff, tables, eff.cur, arrival)
+        _observe(eff, tables)
+        out = self._decide_core(tables, eff, ctl[:, T_STEP].long(), self._txt)
+        return select_lanes(submit & ~state.ended, eff, state), out
+
+    # ---- control-loop API -----------------------------------------------
+
+    def join(self, instr_encoding) -> FleetSession:
+        """Claim a free slot for a new episode (its instruction encoded
+        into the fleet's buffers)."""
+        for slot in range(self.k):
+            if slot not in self._sessions:
+                sess = FleetSession(self, slot, instr_encoding)
+                self._sessions[slot] = sess
+                return sess
+        raise RuntimeError(f"all {self.k} fleet slots busy; release one")
+
+    def release(self, slot: int):
+        self._sessions.pop(slot, None)
+        self._pending_rows.pop(slot, None)   # never into a re-claimed slot
+
+    def restore_session(self, path: str) -> FleetSession:
+        """Resume a saved session (from :meth:`FleetSession.save` or
+        :meth:`NavSession.save`: one blob format) in a free slot: host
+        mirrors as saved, the feature rows and the episode lane into the
+        fleet's buffers with ``state.scan`` pointed at the new slot."""
+        blob = _read_blob(path, self)
+        sess = self.join(blob["instr"])
+        slot = sess.slot
+        sess._restore_host(blob)
+        self._features[slot, :self.n] = torch.from_numpy(
+            blob["features"][0]).to(self.device)
+        lane = _state_from_blob(blob, self.device)
+        sess._started = lane is not None
+        if lane is not None:
+            lane.scan = torch.full_like(lane.scan, slot)
+            if self._state is None:
+                self._state = self._empty_state()
+            here = torch.arange(self.k, device=self.device) == slot
+            self._state = select_lanes(here, lane, self._state)
+        return sess
+
+    def step(self, obs_by_slot: dict[int, Observation]) \
+            -> dict[int, NavDecision]:
+        """One control tick: check every submission, ingest them, advance
+        all of them in one batched step, return their decisions.  A
+        rejected submission raises before any session changes."""
+        t0 = time.perf_counter()
+        for slot, obs in obs_by_slot.items():
+            sess = self._sessions.get(slot)
+            if sess is None:
+                raise ValueError(f"slot {slot} holds no session; join() "
+                                 f"first")
+            if sess._ended:
+                raise RuntimeError(
+                    f"slot {slot}: episode already ended; call finish()")
+            sess._check(obs)
+        ctl, pre_lens = {}, {}
+        for slot, obs in obs_by_slot.items():
+            sess = self._sessions[slot]
+            first = not sess._started
+            ctl[slot] = {"submit": 1, "is_first": first,
+                         "moved": sess._last_moved, "node": sess._ingest(obs),
+                         "heading": obs.heading if first else 0.0,
+                         "t_step": sess.t_step}
+            pre_lens[slot] = max(len(sess._traj), 1)
+        host = self._host(self.k)
+        for slot, sess in self._sessions.items():
+            self._fill(host[slot], ctl.get(slot, {}), sess._pack_mirrors(),
+                       self._pending_rows.get(slot))
+        buf = self._upload(host)
+        if self._state is None:
+            self._state = self._empty_state()
+        state, out = self._tick(buf, self._state,
+                                any(c["is_first"] for c in ctl.values()))
+        out = out.cpu().numpy()          # the one device-to-host copy
+        self._state = state
+        self._pending_rows.clear()
+        latency = (time.perf_counter() - t0) * 1000.0
+        decisions = {}
+        for slot, obs in obs_by_slot.items():
+            sess = self._sessions[slot]
+            sess._started = True
+            decisions[slot] = sess._record(out[slot], obs, pre_lens[slot],
+                                           latency)
+        return decisions
+
+    def finish(self, slot: int) -> dict:
+        sess = self._sessions[slot]
+        if not sess._started:
+            raise RuntimeError("no steps taken")
+        return sess._final(self._finish_traj(
+            self._upload(sess._pack_mirrors()[None]),
+            self._features[slot:slot + 1],
+            self._lane_state(slot))[0].cpu().numpy())

@@ -31,12 +31,11 @@ parity keeps the wave path.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from .rollout import EpisodeBatch, Rollout, init_episodes
+from .rollout import (EpisodeBatch, Rollout, _set_at, init_episodes,
+                      select_lanes)
 
 __all__ = ["StreamEval"]
 
@@ -173,13 +172,8 @@ class StreamEval:
         refill = state.ended & (c["ptr"] + rank < q)
         new_idx = torch.where(refill, (c["ptr"] + rank).clamp(max=q - 1),
                               c["ep_idx"])
-        fresh = self._episodes(banks, new_idx)
-        for f in dataclasses.fields(EpisodeBatch):
-            old = getattr(state, f.name)
-            if old is None:             # the teacher's fields: no teacher
-                continue
-            setattr(state, f.name, torch.where(_bcast(refill, old),
-                                               getattr(fresh, f.name), old))
+        c["state"] = select_lanes(refill, self._episodes(banks, new_idx),
+                                  state)
         c["txt_kv"] = _map_kv(c["txt_kv"], lambda cur, bank: torch.where(
             _bcast(refill, cur), bank[new_idx], cur), txt_kv_bank)
         c["ep_idx"] = new_idx
@@ -197,8 +191,8 @@ class StreamEval:
         state: EpisodeBatch = c["state"]
         bufs = c["bufs"]
         ep_idx, lane_t = c["ep_idx"], c["lane_t"]
-        chosen, live0, just_ended = ro.step(state, ep, c["txt_e"], c["txt_m"],
-                                            c["txt_kv"], lane_t)
+        chosen, live0, just_ended, _ = ro.step(state, ep, c["txt_e"],
+                                               c["txt_m"], c["txt_kv"], lane_t)
         # this step's action into the episode's row (dead lanes: trash row)
         row = torch.where(live0, ep_idx, q)
         bufs["actions"][row, lane_t.clamp(max=env.max_action_len - 1)] = chosen
@@ -207,7 +201,7 @@ class StreamEval:
         bufs["stop"][erow] = ro.final_stop_node(state)
         bufs["cur"][erow] = state.cur
         bufs["overflow"][erow] = state.obs_count > env.max_gmap_len - 2
-        bufs["done"][erow] = True
+        _set_at(bufs["done"], erow, True)
         c["lane_t"] = lane_t + live0.long()
         c["sem"] = c["sem"] + live0.sum()
 

@@ -361,7 +361,9 @@ class Trainer:
     def fit(self, items, iters, log_every=100, rng=None, callback=None,
             aug_items=None, speaker=None):
         """Host loop: shuffle, minibatch, step.  The data-order rng
-        persists across calls."""
+        persists across calls.  Each history entry carries ``aug`` (1.0 for
+        an aug batch, as JAX's ``fit``): 0.0, since aug batches are not
+        ported."""
         if aug_items or speaker is not None:
             raise _todo("training on aug or speaker batches")
         r = rng if rng is not None else self._data_rng
@@ -372,6 +374,7 @@ class Trainer:
             if pos + bs > len(order):
                 order, pos = r.permutation(len(items)), 0
             m = self.train_step([items[i] for i in order[pos : pos + bs]])
+            m["aug"] = 0.0
             pos += bs
             history.append(m)
             if callback and (it + 1) % log_every == 0:

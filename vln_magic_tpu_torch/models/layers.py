@@ -47,12 +47,16 @@ class MultiHeadAttention(nn.Module):
     broadcasts against [B, H, Lq, Lk].  Returns (output, head-averaged
     probabilities [B, Lq, Lk]).
 
-    ``use_packed`` sends a deterministic call to
+    ``use_packed`` sends a deterministic call whose caller needs no map to
     ``ops.attention.packed_attention`` (the reference's ``use_pallas`` path,
     layers.py:74-105): Q/K/V go in packed, a [B|1, 1, 1, Lk] bias becomes
     the mask and any other bias a full [B, H, Lq, Lk] sprel, and zeros stand
-    in for the probabilities.  A training call always takes the einsum path,
-    which drops probabilities and returns the map before dropout.
+    in for the probabilities, which the evaluation and serving loops never
+    read.  ``need_maps`` keeps a deterministic call on the einsum path: the
+    training rollout passes it, since it reads the maps (MAKD) and the
+    gradients, and the forward-only kernel gives neither.  A training call
+    (``deterministic=False``) always takes the einsum path, which drops
+    probabilities and returns the map before dropout.
     """
 
     def __init__(self, hidden_size: int, num_heads: int,
@@ -71,7 +75,7 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(hidden_size, hidden_size)
 
     def forward(self, q_input, kv_input, bias=None, precomputed_kv=None,
-                deterministic=True, generator=None):
+                deterministic=True, generator=None, need_maps=False):
         h, hd = self.h, self.hd
         d = h * hd
         q = self.query(q_input)
@@ -84,7 +88,7 @@ class MultiHeadAttention(nn.Module):
         b, lq = q.shape[0], q.shape[1]
         lk = k.shape[1]
 
-        if self.use_packed and deterministic:
+        if self.use_packed and deterministic and not need_maps:
             k = k.reshape(b, lk, d)
             v = v.reshape(b, lk, d)
             if bias is None:
@@ -174,14 +178,15 @@ class TransformerLayer(nn.Module):
         self.ffn_norm = _add_norm(cfg)
 
     def forward(self, x, mask=None, bias=None, deterministic=True,
-                generator=None):
+                generator=None, need_maps=False):
         attn_bias = None
         if mask is not None:
             attn_bias = mask_to_bias(mask, x.dtype)
         if bias is not None:
             attn_bias = bias if attn_bias is None else attn_bias + bias
         drop = {"deterministic": deterministic, "generator": generator}
-        attn_out, probs = self.attention(x, x, attn_bias, **drop)
+        attn_out, probs = self.attention(x, x, attn_bias, need_maps=need_maps,
+                                         **drop)
         x = self.attention_norm(x, attn_out, **drop)
         x = self.ffn_norm(x, self.ffn(x), **drop)
         return x, probs
@@ -208,12 +213,14 @@ class CrossModalLayer(nn.Module):
         self.ffn_norm = _add_norm(cfg)
 
     def forward(self, visn, lang, visn_mask, lang_mask, self_bias=None,
-                cross_kv=None, deterministic=True, generator=None):
+                cross_kv=None, deterministic=True, generator=None,
+                need_maps=False):
         drop = {"deterministic": deterministic, "generator": generator}
         lang_bias = mask_to_bias(lang_mask, visn.dtype)
         visn_bias = mask_to_bias(visn_mask, visn.dtype)
         x_out, x_probs = self.crossattention(visn, lang, lang_bias,
-                                             precomputed_kv=cross_kv, **drop)
+                                             precomputed_kv=cross_kv,
+                                             need_maps=need_maps, **drop)
         visn = self.crossattention_norm(visn, x_out, **drop)
         if self.lang2visn:
             l_out, _ = self.lang2visn_attention(lang, visn, visn_bias, **drop)
@@ -221,7 +228,8 @@ class CrossModalLayer(nn.Module):
         self_attn_bias = visn_bias
         if self_bias is not None:
             self_attn_bias = self_attn_bias + self_bias
-        s_out, _ = self.self_attention(visn, visn, self_attn_bias, **drop)
+        s_out, _ = self.self_attention(visn, visn, self_attn_bias,
+                                       need_maps=need_maps, **drop)
         visn = self.self_norm(visn, s_out, **drop)
         visn = self.ffn_norm(visn, self.ffn(visn), **drop)
         return visn, lang, x_probs

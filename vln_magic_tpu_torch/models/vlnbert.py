@@ -12,7 +12,9 @@ compute dtype.  Training holds f32 master weights and runs the modes under
 ``torch.autocast`` for bf16 compute (``agent.trainer``).  The modes record
 autograd's graph whenever grad mode is on: evaluation callers run them
 under ``torch.no_grad()``.  ``deterministic=False`` turns dropout on, with
-masks from ``generator``.
+masks from ``generator``; ``need_maps`` keeps attention off the
+forward-only packed kernel, for a caller that reads the attention maps or
+the gradients (``models.layers.MultiHeadAttention``).
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ class LanguageEncoder(nn.Module):
         self.layers = _numbered(self, "layer", cfg.num_l_layers,
                                 lambda: TransformerLayer(cfg))
 
-    def forward(self, txt_ids, txt_masks, deterministic=True, generator=None):
+    def forward(self, txt_ids, txt_masks, deterministic=True, generator=None,
+                need_maps=False):
         c = self.cfg
         if txt_ids.shape[1] + c.pad_token_id + 1 > c.max_position_embeddings:
             raise ValueError(
@@ -86,7 +89,7 @@ class LanguageEncoder(nn.Module):
         attns = []
         for layer in self.layers:
             x, probs = layer(x, txt_masks, deterministic=deterministic,
-                             generator=generator)
+                             generator=generator, need_maps=need_maps)
             attns.append(probs)
         return x, torch.stack(attns, dim=1)
 
@@ -111,7 +114,7 @@ class PanoEncoder(nn.Module):
             self.fusion_score = nn.Linear(d, 1)
 
     def forward(self, view_img_fts, loc_fts, nav_types, pano_masks,
-                deterministic=True, generator=None):
+                deterministic=True, generator=None, need_maps=False):
         img = self.img_norm(self.img_proj(view_img_fts))
         loc = self.loc_norm(self.loc_proj(loc_fts))
         x = self.fuse_norm(img + loc + self.nav_type_embedding(nav_types))
@@ -119,7 +122,7 @@ class PanoEncoder(nn.Module):
         attns = []
         for layer in self.layers:
             x, probs = layer(x, pano_masks, deterministic=deterministic,
-                             generator=generator)
+                             generator=generator, need_maps=need_maps)
             attns.append(probs)
         if self.cfg.adaptive_pano_fusion:
             score = self.fusion_score(x)[..., 0]
@@ -146,7 +149,8 @@ class CrossModalEncoder(nn.Module):
                                 lambda: CrossModalLayer(cfg))
 
     def forward(self, visn, lang, visn_mask, lang_mask, pair_dists=None,
-                cross_kvs=None, deterministic=True, generator=None):
+                cross_kvs=None, deterministic=True, generator=None,
+                need_maps=False):
         self_bias = None
         if self.sprels and pair_dists is not None:
             x = (1.0 / (1.0 + pair_dists[..., None])).to(visn.dtype)
@@ -156,7 +160,7 @@ class CrossModalEncoder(nn.Module):
             visn, lang, probs = layer(
                 visn, lang, visn_mask, lang_mask, self_bias,
                 cross_kvs[i] if cross_kvs is not None else None,
-                deterministic, generator)
+                deterministic, generator, need_maps)
             attns.append(probs)
         return visn, torch.stack(attns, dim=1)
 
@@ -214,14 +218,15 @@ class DualScaleVLNBert(nn.Module):
         return x.to(self.dtype)
 
     def language(self, txt_ids, txt_masks, deterministic=True,
-                 generator=None):
-        return self.lang_encoder(txt_ids, txt_masks, deterministic, generator)
+                 generator=None, need_maps=False):
+        return self.lang_encoder(txt_ids, txt_masks, deterministic, generator,
+                                 need_maps)
 
     def panorama(self, view_img_fts, loc_fts, nav_types, pano_masks,
-                 deterministic=True, generator=None):
+                 deterministic=True, generator=None, need_maps=False):
         return self.pano_encoder(self._f(view_img_fts), self._f(loc_fts),
                                  nav_types, pano_masks, deterministic,
-                                 generator)
+                                 generator, need_maps)
 
     def kd_project(self, name, x):
         """The projection head ``name`` (one of ``KD_HEADS``) applied to
@@ -261,7 +266,7 @@ class DualScaleVLNBert(nn.Module):
                    gmap_visited_masks, gmap_pair_dists, vp_img_embeds,
                    vp_pos_fts, vp_masks, vp_nav_masks, gmap_local_slot,
                    vp_cand_visited, txt_cross_kvs=None, deterministic=True,
-                   generator=None):
+                   generator=None, need_maps=False):
         """Dual-scale cross-modal forward + dynamic action fusion (token
         layouts as in the reference: gmap [stop], [mem], visited...,
         frontier...; vp [stop], [mem], pano views...)."""
@@ -273,7 +278,8 @@ class DualScaleVLNBert(nn.Module):
         vp_embeds = self.vp_input_norm(
             self._f(vp_img_embeds) + self.vp_pos_proj(self._f(vp_pos_fts)))
         kvs = txt_cross_kvs or {}
-        drop = {"deterministic": deterministic, "generator": generator}
+        drop = {"deterministic": deterministic, "generator": generator,
+                "need_maps": need_maps}
         gmap_embeds, gmap_attns = self.global_encoder(
             gmap_embeds, txt_embeds, gmap_masks, txt_masks, gmap_pair_dists,
             cross_kvs=kvs.get("global"), **drop)

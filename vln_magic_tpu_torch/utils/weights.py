@@ -62,6 +62,19 @@ def load_flax_params(model: nn.Module, flat: dict) -> None:
             param.copy_(torch.from_numpy(arr.copy(order="C")))
 
 
+def export_flax_params(model: nn.Module) -> dict[str, np.ndarray]:
+    """``model``'s parameters as flat flax names in the flax layouts (Dense
+    kernels [in, out]), f32 numpy: the inverse of ``load_flax_params``,
+    which loads them back bit for bit (a bf16 model's values are exact in
+    f32).  Serving bundles and int8 quantization (``utils.quantize``) work
+    on this layout, as JAX's do."""
+    out = {}
+    for name, (param, transpose) in _flax_names(model).items():
+        x = param.detach().float().cpu()
+        out[name] = (x.t() if transpose else x).contiguous().numpy()
+    return out
+
+
 def flax_named_grads(model: nn.Module) -> dict[str, torch.Tensor]:
     """``model``'s gradients under their flax names, in the flax layout
     (Linear gradients transposed to [in, out]); zeros where there is no
