@@ -85,7 +85,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     their copies counted at PyTorch's dispatcher: exactly one
     host-to-device and one device-to-host copy; f32 and int8 deployment
     bundles, the int8 one under 0.45 of the f32 size and served to
-    ``finish()``.
+    ``finish()``;
+11. pretraining at ``bench.py --pretrain``'s shape (``pretrain_config``:
+    the MAGIC-S student with its KD heads and the MAGIC teacher, 6/2/3
+    layers each, CLIP-768 features, vocabulary 50,265, 200-token
+    instructions, ``PathDataBuilder``'s defaults (8 steps, gmap 48), batch
+    48, AdamW at 5e-5, in-step KD at alpha 0.5, the packed kernel on in
+    both models, f32), random weights from a seed: per task (mlm, mrc,
+    sap, cfp) one warm-up and three timed steps on device batches
+    (synchronised ms, every metric finite, peak memory, the host's build
+    time a batch), each step launching ``packed_attention`` 6 (mlm) or 20
+    times from the teacher's forward, all on the SIMT route, and
+    ``fused_attention`` never; a 12-step ``fit`` through
+    ``PrefetchLoader`` (wall, examples/s); one ``validate`` (the student's
+    66 launches); one sap step under ``torch.profiler``; every packed call
+    of a sap step (the teacher, H 12) and of a validate (the student, H 2)
+    held against the plain version (2e-5 and the exact limit), the
+    teacher's six shapes timed against their bound, the plain version and
+    SDPA; and a sap step with the teacher on its einsum path;
+12. golden pretraining step: ``tests/fixtures/golden_pretrain_11.npz`` (a
+    tiny JAX student and teacher, the spec, one batch a task, JAX's
+    metrics, gradient norms and leaves after one sgd step) through the
+    port's step on the card in f32, TF32 off, the teacher on the packed
+    kernel: every metric to 1e-5, the norms and leaves to 1e-4.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
@@ -129,6 +151,15 @@ SERVE_NODES = 64                 # bench.py --serve: one 64-node scan
 SERVE_DECISIONS = 200            # decisions measured in sessions
 FLEET_SLOTS = (8, 64)            # bench.py --serve --fleet K
 FLEET_TICKS = 200                # ticks measured at each K
+PRETRAIN_BATCH = 48              # bench.py --pretrain
+PRETRAIN_STEPS = 3               # timed steps of each task
+PRETRAIN_FIT = 12                # steps of the fit through PrefetchLoader
+PRETRAIN_TASKS = ("mlm", "mrc", "sap", "cfp")
+# packed launches of one forward at 6/2/3 layers: the language layers for
+# mlm; 6 language, 2 panorama and 12 cross-modal for the path tasks
+PRETRAIN_LAUNCHES = {"mlm": 6, "mrc": 20, "sap": 20, "cfp": 20, "og": 20}
+PRETRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                "golden_pretrain_11.npz")
 
 
 def emit(obj):
@@ -1282,12 +1313,10 @@ def _stats(ms):
             "p95": float(np.percentile(ms, 95)), "n": int(ms.size)}
 
 
-def _checked_packed(fn):
+def _captured_packed(fn):
     """``fn()`` with every ``packed_attention`` call the model makes in it
-    held against the plain version on the same card tensors: within
-    ``BF16_TOL`` of it and within ``packed_attention_error``'s limit of the
-    kernel's own f32 arithmetic, each launch on the tensor-core route.
-    Returns ``(fn's result, one row per (B, Lq, Lk, sprel))``."""
+    recorded: ``(fn's result, [(q, k, v, mask_bias, sprel_bias), num_heads,
+    out, tensor-core route?] per call)``, the tensors cloned."""
     from vln_magic_tpu_torch.models import layers
     from vln_magic_tpu_torch.ops import attention
 
@@ -1307,30 +1336,50 @@ def _checked_packed(fn):
         result = fn()
     finally:
         layers.packed_attention = real
+    if not calls:
+        raise AssertionError("no packed_attention call to check")
+    return result, calls
+
+
+def _check_calls(calls, tol, tensor_cores):
+    """Each captured call held against the plain version on the same card
+    tensors: within ``tol`` of it and within ``packed_attention_error``'s
+    limit of the kernel's own f32 arithmetic, on the tensor-core route if
+    ``tensor_cores``, else the SIMT route.  One row per (B, H, Lq, Lk,
+    sprel)."""
+    from vln_magic_tpu_torch.ops import attention
+
     rows = {}
     for (q, k, v, mask, sp), h, got, tc in calls:
         want = attention.packed_attention_reference(q, k, v, mask, sp, h)
         err = (got.float() - want.float()).abs().max().item()
         exact_err, used = attention.packed_attention_error(
             q, k, v, mask, sp, h, got, atol=F32_TOL)
-        shape = (q.shape[0], q.shape[1], k.shape[1], sp is not None)
-        if not (torch.isfinite(got).all() and err <= BF16_TOL and used <= 1.0
-                and tc):
+        shape = (q.shape[0], h, q.shape[1], k.shape[1], sp is not None)
+        if not (torch.isfinite(got).all() and err <= tol and used <= 1.0
+                and tc == tensor_cores):
             raise AssertionError(
-                f"packed_attention at (B, Lq, Lk, sprel) {shape} "
+                f"packed_attention at (B, H, Lq, Lk, sprel) {shape} "
                 f"({'tensor-core' if tc else 'SIMT'} route): max abs err "
-                f"{err} (tol {BF16_TOL}); against f32 arithmetic "
+                f"{err} (tol {tol}); against f32 arithmetic "
                 f"{exact_err}, {used:.3f} of its limit")
         row = rows.setdefault(shape, {
-            "B": shape[0], "Lq": shape[1], "Lk": shape[2], "sprel": shape[3],
-            "calls": 0, "max_abs_err": 0.0, "exact_limit_used": 0.0})
+            "B": shape[0], "H": h, "Lq": shape[2], "Lk": shape[3],
+            "sprel": shape[4], "calls": 0, "max_abs_err": 0.0,
+            "exact_limit_used": 0.0})
         row["calls"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["exact_limit_used"] = max(row["exact_limit_used"], used)
-    if not calls:
-        raise AssertionError("no packed_attention call to check")
-    return result, sorted(rows.values(), key=lambda r: (
-        r["B"], r["Lq"], r["Lk"], r["sprel"]))
+    return sorted(rows.values(), key=lambda r: (
+        r["B"], r["H"], r["Lq"], r["Lk"], r["sprel"]))
+
+
+def _checked_packed(fn, tol=BF16_TOL, tensor_cores=True):
+    """``fn()`` with every ``packed_attention`` call the model makes in it
+    held against the plain version (``_check_calls``).  Returns ``(fn's
+    result, one row per (B, H, Lq, Lk, sprel))``."""
+    result, calls = _captured_packed(fn)
+    return result, _check_calls(calls, tol, tensor_cores)
 
 
 def phase_serving(card):
@@ -1531,6 +1580,310 @@ def phase_serving(card):
             "checked_exact_limit_used": worst("exact_limit_used")}
 
 
+def pretrain_config():
+    """``bench.py --pretrain``'s configuration (bench.py:98-180,
+    :359-431): the MAGIC-S student (with its KD heads onto the teacher's
+    768) and the MAGIC teacher, 6/2/3 layers each, CLIP-768 features,
+    200-token instructions, batch 48, AdamW at 5e-5, in-step KD at alpha
+    0.5; the packed kernel on in both models, f32."""
+    from vln_magic_tpu_torch.config import (DistillConfig, EnvConfig,
+                                            MagicConfig, ModelConfig,
+                                            TrainConfig)
+
+    depth = {"num_l_layers": 6, "num_pano_layers": 2, "num_x_layers": 3,
+             "image_feat_size": 768, "kd_heads": True,
+             "use_pallas_attention": True}
+    return MagicConfig(
+        model=ModelConfig(hidden_size=128, num_attention_heads=2,
+                          kd_target_size=768, **depth),
+        teacher_model=ModelConfig(hidden_size=768, num_attention_heads=12,
+                                  kd_target_size=128, **depth),
+        env=EnvConfig(max_instr_len=200),
+        train=TrainConfig(batch_size=PRETRAIN_BATCH, lr=5e-5, optim="adamw"),
+        distill=DistillConfig(train_kdl=True, alpha=0.5))
+
+
+def _finite(what, metrics):
+    if not all(math.isfinite(v) for m in metrics for v in m.values()
+               if not isinstance(v, str)):
+        raise AssertionError(f"{what}: a metric is not finite: {metrics}")
+
+
+def _simt_launches(what, want):
+    """The packed launches since the last reset must number ``want``, all
+    on the SIMT route (f32), with no fused launch."""
+    from vln_magic_tpu_torch.ops.attention import packed_attention
+
+    got = _launches()
+    if (got["packed_attention"] != want or packed_attention.tc_launches
+            or got["fused_attention"]):
+        raise AssertionError(
+            f"{what}: {got} launches ({packed_attention.tc_launches} on "
+            f"tensor cores); want {want} packed, all SIMT, 0 fused")
+    return got["packed_attention"]
+
+
+def _time_packed_shapes(calls):
+    """For the first captured call of each (B, H, Lq, Lk, sprel): the
+    kernel's device time, its bound, the plain version's and
+    ``scaled_dot_product_attention``'s on the same tensors, and the calls
+    of that shape."""
+    import torch.nn.functional as F
+
+    from vln_magic_tpu_torch.ops import attention
+
+    pa, ref = attention.packed_attention, attention.packed_attention_reference
+    rows = {}
+    for (q, k, v, mask, sp), h, _, _ in calls:
+        key = (q.shape[0], h, q.shape[1], k.shape[1], sp is not None)
+        if key in rows:
+            rows[key]["calls"] += 1
+            continue
+        b, lq, lk, hd = q.shape[0], q.shape[1], k.shape[1], q.shape[2] // h
+        split = lambda x: x.view(b, x.shape[1], h, hd).transpose(1, 2)
+        bias = mask[:, None, None, :] + (sp if sp is not None else 0.0)
+        bound_ms, bytes_ms, ops_ms = bound(b, h, lq, lk, hd, q.dtype,
+                                           sp is not None)
+        rows[key] = {
+            "B": b, "H": h, "Lq": lq, "Lk": lk, "hd": hd,
+            "sprel": sp is not None, "calls": 1,
+            "ms": time_ms(lambda: pa(q, k, v, mask, sp, num_heads=h)),
+            "plain_ms": time_ms(lambda: ref(q, k, v, mask, sp, h)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                split(q), split(k), split(v), attn_mask=bias)),
+            "bound_ms": bound_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+    total = {key: sum(r["calls"] * r[key] for r in rows.values())
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bytes_ms", "ops_ms")}
+    return list(rows.values()), total
+
+
+def phase_pretraining(card, world):
+    """Phase 11: the pretraining step at ``bench.py --pretrain``'s shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.models.layers import MultiHeadAttention
+    from vln_magic_tpu_torch.pretrain.loader import ItemSampler, batch_to_device
+    from vln_magic_tpu_torch.pretrain.trainer import PretrainTrainer
+
+    cfg = pretrain_config()
+    t0 = time.perf_counter()
+    tr = PretrainTrainer(cfg, world, device="cuda")
+    rng = np.random.default_rng(3)
+    items = make_synthetic_instructions(world, 2 * PRETRAIN_BATCH, rng,
+                                        min_path=4, max_path=7,
+                                        vocab_size=cfg.model.vocab_size)
+    for it in items:    # full-length 200-token instructions
+        it["instr_encoding"] = rng.integers(4, 1000, 200).astype(np.int32)
+    setup_s = time.perf_counter() - t0
+    sampler = ItemSampler(items, PRETRAIN_BATCH, 0)
+    batches, build_ms = {}, {}
+    for task in PRETRAIN_TASKS:
+        t0 = time.perf_counter()
+        batch = tr._fill(task, getattr(tr.builder, f"{task}_batch")(
+            sampler.next_batch()))
+        build_ms[task] = (time.perf_counter() - t0) * 1e3
+        batches[task] = batch_to_device(batch, "cuda")
+
+    def step(task):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(task, batches[task])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, m
+
+    per_step, step_ms = {}, {}
+    for task in PRETRAIN_TASKS:
+        warm_ms, _ = step(task)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        timed = [step(task) for _ in range(PRETRAIN_STEPS)]
+        launches = _simt_launches(f"pretraining {task}", PRETRAIN_STEPS
+                                  * PRETRAIN_LAUNCHES[task])
+        metrics = [m for _, m in timed]
+        _finite(f"pretraining {task}", metrics)
+        per_step[task] = launches // PRETRAIN_STEPS
+        step_ms[task] = float(np.median([ms for ms, _ in timed]))
+        emit({"phase": "pretraining_step", "task": task,
+              "batch": PRETRAIN_BATCH, "warmup_ms": warm_ms,
+              "ms_per_step": [ms for ms, _ in timed],
+              "median_ms_per_step": step_ms[task], "metrics": metrics,
+              "packed_launches_per_step": per_step[task],
+              "route": "simt", "fused_launches": 0,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "host_build_ms_per_batch": build_ms[task], "card": card})
+
+    ratios = {"mlm": 1, "sap": 1, "cfp": 1, "mrc": 1}
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = tr.fit(items, PRETRAIN_FIT, task_ratios=ratios)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    _finite("pretraining fit", hist)
+    fit_launches = _simt_launches("pretraining fit", sum(
+        PRETRAIN_LAUNCHES[h["task"]] for h in hist))
+    emit({"phase": "pretraining_fit", "steps": PRETRAIN_FIT,
+          "task_ratios": ratios, "tasks": [h["task"] for h in hist],
+          "wall_s": fit_s, "examples_per_s": PRETRAIN_FIT * PRETRAIN_BATCH
+          / fit_s, "ms_per_step": fit_s * 1e3 / PRETRAIN_FIT,
+          "packed_launches": fit_launches,
+          "losses": [h["loss"] for h in hist], "card": card})
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = tr.validate(items, num_batches=1)
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t0) * 1e3
+    _finite("pretraining validate", [val])
+    val_launches = _simt_launches("pretraining validate", sum(
+        PRETRAIN_LAUNCHES[t] for t in PRETRAIN_TASKS))
+    emit({"phase": "pretraining_validate", "num_batches": 1, "metrics": val,
+          "ms": val_ms, "packed_launches": val_launches, "route": "simt",
+          "card": card})
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms, _ = step("sap")
+    emit({"phase": "pretraining_profile", "task": "sap",
+          "profiled_ms": profiled_ms,
+          **device_breakdown(prof, step_ms["sap"]), "card": card})
+
+    # every packed call of one sap step (the teacher, H 12) and of one
+    # validate batch a task (the student, H 2) against the plain version
+    _, calls = _captured_packed(lambda: tr.train_step("sap", batches["sap"]))
+    step_rows = _check_calls(calls, F32_TOL, tensor_cores=False)
+    shapes, per_sap_step = _time_packed_shapes(calls)
+    del calls
+    _, val_rows = _checked_packed(lambda: tr.validate(items, num_batches=1),
+                                  tol=F32_TOL, tensor_cores=False)
+    worst = lambda key: max(r[key] for r in step_rows + val_rows)
+    emit({"phase": "pretraining_kernel_check", "tol": F32_TOL,
+          "sap_step": step_rows, "validate": val_rows,
+          "max_abs_err": worst("max_abs_err"),
+          "exact_limit_used": worst("exact_limit_used"), "card": card})
+    emit({"phase": "pretraining_kernel_times", "dtype": "float32",
+          "route": "simt", "teacher_shapes": shapes,
+          "per_sap_step": per_sap_step, "card": card})
+
+    # the same sap step with the teacher on its einsum path
+    teacher_attn = [m for m in tr.teacher.modules()
+                    if isinstance(m, MultiHeadAttention) and m.use_packed]
+    for m in teacher_attn:
+        m.use_packed = False
+    try:
+        step("sap")
+        _reset_launches()
+        einsum = [step("sap") for _ in range(PRETRAIN_STEPS)]
+        _simt_launches("pretraining sap, teacher einsum", 0)
+    finally:
+        for m in teacher_attn:
+            m.use_packed = True
+    einsum_ms = float(np.median([ms for ms, _ in einsum]))
+    emit({"phase": "pretraining_teacher_einsum", "task": "sap",
+          "ms_per_step": [ms for ms, _ in einsum],
+          "median_ms_per_step": einsum_ms,
+          "median_ms_per_step_kernel": step_ms["sap"],
+          "kernel_step_share": step_ms["sap"] / einsum_ms, "card": card})
+    return {"step": per_step, "validate": val_launches,
+            "max_abs_err": worst("max_abs_err"),
+            "exact_limit_used": worst("exact_limit_used"),
+            "sap_step": per_sap_step}
+
+
+def golden_pretrain_step(device="cuda"):
+    """The port's pretraining step on the golden JAX fixture
+    (``PRETRAIN_FIXTURE``): per task, from JAX's weights, the step's
+    metrics (loss, kd, accuracies), the student's gradient norm and the
+    fixture's leaves after one sgd step.  Returns the errors, and the
+    packed launches of each objective as ``launches/<task>``; raises when
+    a metric is over 1e-5 (relative, of at least 1e-6), a norm over 1e-4
+    relative, or a leaf's update over 1e-4 of its largest."""
+    from vln_magic_tpu_torch.config import config_from_dict
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.ops.attention import packed_attention
+    from vln_magic_tpu_torch.pretrain.trainer import PretrainTrainer
+    from vln_magic_tpu_torch.utils.weights import (export_flax_params,
+                                                   flax_named_grads,
+                                                   load_flax_params)
+
+    fx = dict(np.load(PRETRAIN_FIXTURE))
+    spec = json.loads(str(fx["spec"]))
+    tree = lambda prefix: {k[len(prefix):]: v for k, v in fx.items()
+                           if k.startswith(prefix)}
+    tr = PretrainTrainer(config_from_dict(spec["config"]),
+                         make_synthetic_world(**spec["world"]),
+                         image_prob_size=spec["image_prob_size"],
+                         builder_kwargs=spec["builder"], device=device)
+    params = tree("params/")
+    load_flax_params(tr.teacher, tree("t_params/"))
+    errs, bad = {}, []
+    for task in spec["tasks"]:
+        load_flax_params(tr.model, params)
+        batch = tree(f"batch/{task}/")
+        tr.opt.zero_grad()
+        before = packed_attention.launches
+        loss, _ = tr._objective(task, tr._on_device(batch),
+                                torch.Generator(device=tr.device)
+                                .manual_seed(0))
+        errs[f"launches/{task}"] = packed_attention.launches - before
+        loss.backward()
+        norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                             for g in flax_named_grads(tr.model).values()))
+        tr.opt.zero_grad()
+        got = tr.train_step(task, batch)
+        want = tree(f"metrics/{task}/")
+        if sorted(got) != sorted(want):
+            bad.append(f"{task} metrics {sorted(got)} != {sorted(want)}")
+        for k, w in want.items():
+            e = abs(got.get(k, math.nan) - float(w)) / max(abs(float(w)),
+                                                          1e-6)
+            errs[f"metric_rel/{task}/{k}"] = e
+            if not e <= 1e-5:     # "not <=" so that a NaN fails
+                bad.append(f"{task} {k}: {got.get(k)} against {float(w)}")
+        w = float(fx[f"grad_norm/{task}"])
+        errs[f"grad_norm_rel/{task}"] = abs(norm - w) / w
+        if not errs[f"grad_norm_rel/{task}"] <= 1e-4:
+            bad.append(f"{task} gradient norm {norm} against {w}")
+        after = export_flax_params(tr.model)
+        for k, w in tree(f"after/{task}/").items():
+            step_want = w - params[k]
+            e = float(np.max(np.abs(after[k] - w))
+                      / np.max(np.abs(step_want)))
+            errs[f"leaf_rel/{task}/{k}"] = e
+            if not e <= 1e-4:
+                bad.append(f"{task} {k}: {e} of its update")
+    if bad:
+        raise AssertionError("golden pretraining step: " + "; ".join(bad))
+    return errs
+
+
+def phase_golden_pretrain(card):
+    """Phase 12: the JAX golden pretraining step in f32, TF32 off, the
+    teacher on the packed kernel (SIMT route): 1 launch a mlm objective
+    (one language layer), 6 a path task's."""
+    _reset_launches()
+    errs = golden_pretrain_step()
+    launches = {k.split("/")[1]: v for k, v in errs.items()
+                if k.startswith("launches/")}
+    want = {t: 1 if t == "mlm" else 6 for t in launches}
+    if launches != want:
+        raise AssertionError(f"golden pretraining: packed launches "
+                             f"{launches}, want {want}")
+    _simt_launches("golden pretraining", 2 * sum(want.values()))
+    emit({"phase": "golden_pretrain", "fixture": os.path.relpath(
+        PRETRAIN_FIXTURE, ROOT), "errors": errs,
+          "max_metric_rel": max(v for k, v in errs.items()
+                                if k.startswith("metric")),
+          "max_leaf_rel": max(v for k, v in errs.items()
+                              if k.startswith("leaf")),
+          "packed_launches_per_objective": launches, "route": "simt",
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "card": card})
+    return sum(want.values())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1550,6 +1903,8 @@ def main():
     phase_golden_train(card)
     golden_serve_launches = phase_serving_golden(card)
     serve = phase_serving(card)
+    pretrain = phase_pretraining(card, nav.world)
+    golden_pretrain_launches = phase_golden_pretrain(card)
     by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     emit({"kernels": [{
         "name": "packed_attention", "route": "cuda",
@@ -1563,6 +1918,12 @@ def main():
         "exact_limit_used": packed["exact_limit_used"],
         "serve_max_abs_err": serve["checked_max_abs_err"],
         "serve_exact_limit_used": serve["checked_exact_limit_used"],
+        "pretrain_max_abs_err": pretrain["max_abs_err"],
+        "pretrain_exact_limit_used": pretrain["exact_limit_used"],
+        "pretrain_sap_step_ms": pretrain["sap_step"]["ms"],
+        "pretrain_sap_step_plain_ms": pretrain["sap_step"]["plain_ms"],
+        "pretrain_sap_step_bound_ms": pretrain["sap_step"]["bound_ms"],
+        "pretrain_sap_step_library_ms": pretrain["sap_step"]["library_ms"],
         "launches_by_path": {"wave": wave_launches,
                              "stream": stream_launches,
                              "parity": parity_launches,
@@ -1570,11 +1931,18 @@ def main():
                                  "packed_attention"],
                              "serve": serve["serve"],
                              "fleet": serve["fleet"],
-                             "serve_golden_f32": golden_serve_launches},
+                             "serve_golden_f32": golden_serve_launches,
+                             "pretrain_step": pretrain["step"],
+                             "pretrain_validate": pretrain["validate"],
+                             "pretrain_golden_f32":
+                                 golden_pretrain_launches},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
                           "parity": "tensor_core", "golden_f32": "simt",
                           "serve": "tensor_core", "fleet": "tensor_core",
-                          "serve_golden_f32": "simt"},
+                          "serve_golden_f32": "simt",
+                          "pretrain_step": "simt",
+                          "pretrain_validate": "simt",
+                          "pretrain_golden_f32": "simt"},
         "per": "one wave of the main path (216 launches, bf16, tensor-core "
                "route)"}, {
         "name": "fused_attention", "route": "cuda",
@@ -1590,7 +1958,9 @@ def main():
         "tc_launches": fused["tc_launches"],
         "route_by_path": {"entry_point": "tensor_core", "f32": "simt"},
         "launches_by_path": {"entry_point": fused["launches"],
-                             "train_step": train_launches["fused_attention"]},
+                             "train_step": train_launches["fused_attention"],
+                             # phase 11 raises on any fused launch
+                             "pretrain_step": 0, "pretrain_validate": 0},
         "per": "its entry point once at each of the six MAGIC-S path "
                "shapes (6 launches, bf16, tensor-core route); no model path "
                "calls it, the train step included"}]})

@@ -22,8 +22,8 @@ from vln_magic_tpu.models import DualScaleVLNBert as FlaxModel
 from vln_magic_tpu.models.vlnbert import dummy_step_batch
 from vln_magic_tpu.utils.checkpoint import flatten_params, save_torch_checkpoint
 from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
-from vln_magic_tpu_torch.utils.weights import (load_flax_params,
-                                               load_reference_checkpoint)
+from vln_magic_tpu_torch.utils.checkpoint import load_reference_checkpoint
+from vln_magic_tpu_torch.utils.weights import load_flax_params
 
 TOL = 2e-5
 B, LT, P, G = 3, 12, 9, 7      # batch, text, pano tokens, gmap tokens
@@ -217,7 +217,8 @@ def test_reference_checkpoint_container_round_trip(tmp_path):
     params = flax_params(BASE, seed=1)
     path = str(tmp_path / "nav.pt")
     save_torch_checkpoint(params, path, epoch=3)
-    flat = load_reference_checkpoint(path)
+    flat, epoch = load_reference_checkpoint(path)
+    assert epoch == 3
     want = flatten_params(params)
     assert sorted(flat) == sorted(want)
     tmodel = DualScaleVLNBert(BASE, device="cpu")

@@ -383,7 +383,6 @@ def test_load_trainer_params_carries_all_three_trees(jax_run, port_world):
 UNPORTED = {
     "fuse_rollouts": {"train": {"fuse_rollouts": True}},
     "a2c": {"train": {"train_alg": "a2c"}},
-    "accumulation": {"train": {"accum_steps": 2}},
     "rangerlars": {"train": {"optim": "rangerlars"}},
     "fix_lang_embedding": {"train": {"fix_lang_embedding": True}},
     "bf16_grads": {"train": {"grads_dtype": "bfloat16"}},
@@ -408,8 +407,7 @@ def test_unported_training_options_raise(port_world, name):
 def test_unported_trainer_entry_points_raise(jax_run, port_world):
     tr = port_trainer_like(jax_run, port_world)
     items = items_for(port_world)
-    for call in (lambda: tr.use_mesh(None), lambda: tr.save_state("x"),
-                 lambda: tr.load_state("x"),
+    for call in (lambda: tr.use_mesh(None),
                  lambda: tr.update_ability_grads(items),
                  lambda: tr.fit(items, 1, aug_items=items)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -3,7 +3,10 @@
 A port of ``vln_magic_tpu`` (JAX on TPU), which stays in the repository as
 the reference.  This package imports torch and numpy only.  It covers
 evaluation (``agent.navigator.Navigator.evaluate``), MAKD + ICoD DAgger
-training (``agent.trainer.Trainer``) and online serving (``agent.NavServer``,
+training (``agent.trainer.Trainer``), proxy-task pretraining
+(``pretrain.trainer.PretrainTrainer``, ``cli.train_pretrain``) with the
+``.pt`` checkpoints that carry its trunk into fine-tuning
+(``utils.checkpoint``), and online serving (``agent.NavServer``,
 ``agent.NavFleet``), with the attention kernels hand-written in CUDA
 (``ops.attention``).
 

@@ -15,12 +15,20 @@ in ``.grad`` are those of the sum, with one rollout's activations alive at
 a time); then each optimizer clips its own gradients and steps once.
 Parameters are f32 masters; with ``compute_dtype="bfloat16"`` the forward
 runs under ``torch.autocast``, as flax's ``dtype=bf16`` modules compute
-from f32 params.
+from f32 params.  ``accum_steps`` > 1 applies each optimizer every k steps
+to the mean gradient (``Optimizer``, optax's ``MultiSteps``).
+
+Checkpoints (agent_base.py:298-359): ``save``/``load`` write and read the
+reference ``.pt`` container, which the JAX package reads and writes too;
+``load_pretrained`` takes a pretraining trunk (``model_step_N.pt``) into
+the student or the teacher; ``save_state``/``load_state`` keep the whole
+train state in the port's own format (``utils.checkpoint``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from contextlib import nullcontext
 
 import numpy as np
@@ -29,6 +37,9 @@ import torch
 from ..config import MagicConfig
 from ..env.world import World
 from ..models.vlnbert import Critic, DualScaleVLNBert
+from ..utils.checkpoint import (CheckpointManager, pretrain_to_nav_key_map,
+                                restore_reference_checkpoint,
+                                save_reference_checkpoint)
 from ..utils.device import resolve_device
 from ..utils.weights import flax_named_grads, init_params
 from .distill import total_kd_loss
@@ -52,7 +63,6 @@ def refuse_unported_training(cfg: MagicConfig) -> None:
                           "rollout)"),
         (t.train_alg not in ("imitation", "dagger"),
          f"train_alg={t.train_alg!r} (the A2C branch)"),
-        (t.accum_steps > 1, "accum_steps > 1 (gradient accumulation)"),
         (t.optim.lower() not in OPTIMIZERS, f"optim={t.optim!r}"),
         (t.fix_lang_embedding or t.fix_local_branch or t.fix_pano_embedding,
          "the fix_* parameter freezing"),
@@ -150,19 +160,29 @@ class Optimizer:
     leaf off the loss's path has zero gradient in JAX).  ``adamw``/``adam``:
     b1 0.9, b2 0.999, eps 1e-8 and no eps_root, bias-corrected; ``adamw``
     adds the decoupled weight decay to the update before the learning
-    rate; ``sgd``: no momentum."""
+    rate; ``sgd``: no momentum.
+
+    ``accum_steps`` k > 1 is ``optax.MultiSteps(chain, every_k_schedule=k)``:
+    each step folds its gradients into their running mean (Welford's
+    update, as optax's); the k-th clips that mean and applies the update,
+    and the others change no parameter.  The count, and so the schedule,
+    advances only on an applying step."""
 
     def __init__(self, params, kind: str, schedule, grad_clip: float,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, accum_steps: int = 1):
         if kind not in OPTIMIZERS:
             raise _todo(f"optim={kind!r}")
         self.params = list(params)
         self.kind, self.schedule = kind, schedule
         self.grad_clip, self.weight_decay = grad_clip, weight_decay
+        self.accum_steps = max(int(accum_steps), 1)
         self.count = 0
+        self.mini_step = 0
         if kind != "sgd":
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
+        if self.accum_steps > 1:
+            self.acc = [torch.zeros_like(p) for p in self.params]
 
     def grads(self):
         return [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -174,12 +194,30 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """One update from the accumulated gradients; returns their global
-        norm before clipping."""
+        """One step from the accumulated ``.grad``; returns their global
+        norm before clipping (this step's, under accumulation too)."""
         grads = self.grads()
         norm = global_norm(grads)
-        scale = torch.where(norm < self.grad_clip, 1.0,
-                            self.grad_clip / norm)
+        if self.accum_steps > 1:
+            # acc + (g - acc) / (n + 1)
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, self.mini_step + 1)
+            torch._foreach_add_(self.acc, delta)
+            if self.mini_step < self.accum_steps - 1:
+                self.mini_step += 1
+                return norm
+            grads = self.acc
+            self.acc = [torch.zeros_like(p) for p in self.params]
+            self.mini_step = 0
+            self._apply(grads, global_norm(grads))
+        else:
+            self._apply(grads, norm)
+        return norm
+
+    def _apply(self, grads, norm):
+        """The update from ``grads`` (global norm ``norm``), clipped, at the
+        current count."""
+        scale = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
         grads = torch._foreach_mul(grads, scale)
         lr = self.schedule(self.count)
         if self.kind == "sgd":
@@ -201,7 +239,33 @@ class Optimizer:
                                     alpha=self.weight_decay)
             torch._foreach_add_(self.params, update, alpha=-lr)
         self.count += 1
-        return norm
+
+    def _buffers(self) -> list[str]:
+        """The per-parameter state this optimizer keeps."""
+        return [n for n in ("mu", "nu", "acc") if hasattr(self, n)]
+
+    def state_dict(self) -> dict:
+        """The moments, the running mean, the count and the mini-step (the
+        parameters are the model's)."""
+        state = {"count": self.count, "mini_step": self.mini_step}
+        for name in self._buffers():
+            state[name] = [t.detach().clone() for t in getattr(self, name)]
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        want = sorted(["count", "mini_step"] + self._buffers())
+        if sorted(state) != want:
+            raise KeyError(f"optimizer state {sorted(state)} does not match "
+                           f"{want}")
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        for name in self._buffers():
+            mine = getattr(self, name)
+            if [t.shape for t in state[name]] != [t.shape for t in mine]:
+                raise ValueError(f"optimizer state {name}: shapes do not "
+                                 "match the parameters")
+            setattr(self, name, [t.to(m.device, m.dtype).clone()
+                                 for t, m in zip(state[name], mine)])
 
 
 def make_optimizer(cfg, params, lr=None) -> Optimizer:
@@ -210,7 +274,7 @@ def make_optimizer(cfg, params, lr=None) -> Optimizer:
     t = cfg.train
     sched = make_lr_schedule(cfg) if lr is None else (lambda step: lr)
     return Optimizer(params, t.optim.lower(), sched, t.grad_clip,
-                     t.weight_decay)
+                     t.weight_decay, t.accum_steps)
 
 
 class Trainer:
@@ -381,16 +445,109 @@ class Trainer:
                 callback(it + 1, m)
         return history
 
+    # ----- checkpoints (agent_base.py:298-359 semantics) -----
+
+    def save(self, path: str, save_optimizer: bool = False):
+        """The reference ``.pt`` container of the student at ``path``
+        (epoch = ``iteration``), the teacher's beside it as
+        ``teacher_<file>`` when it co-trains, and with ``save_optimizer``
+        the student's optimizer state under ``<path>.opt``."""
+        save_reference_checkpoint(self.model, path, epoch=self.iteration)
+        if self.icod:
+            d, f = os.path.split(path)
+            save_reference_checkpoint(self.teacher_model,
+                                      os.path.join(d, "teacher_" + f),
+                                      epoch=self.iteration)
+        if save_optimizer:
+            CheckpointManager(path + ".opt").save("opt_state",
+                                                  self.opt.state_dict())
+
+    def load(self, path: str, resume_optimizer: bool = False,
+             teacher_path: str | None = None):
+        """Load the student from a reference ``.pt`` file (names absent
+        from it keep their values) and take its epoch as ``iteration``;
+        with ``teacher_path`` the teacher too, without its KD heads unless
+        it co-trains; with ``resume_optimizer`` the optimizer state that
+        ``save(save_optimizer=True)`` wrote.  Returns ``(epoch, missing,
+        unexpected)`` of the student's load."""
+        epoch, missing, unexpected = restore_reference_checkpoint(
+            self.model, path)
+        self.iteration = epoch
+        if teacher_path and self.teacher_model is not None:
+            restore_reference_checkpoint(
+                self.teacher_model, teacher_path,
+                drop_kd_heads=not self.cfg.distill.train_teacher)
+        if resume_optimizer:
+            mgr = CheckpointManager(path + ".opt")
+            if mgr.has("opt_state"):
+                self.opt.load_state_dict(mgr.restore("opt_state"))
+        return epoch, missing, unexpected
+
+    def load_pretrained(self, path: str, role: str = "student"):
+        """Load a pretraining checkpoint's trunk (``model_step_N.pt`` of
+        either package) into the student or the teacher
+        (``--bert_ckpt_file``, main_nav.py:536-556): the ``bert.`` prefix is
+        stripped and the task heads dropped.  Parameters the file lacks
+        keep their init values.  Returns ``(missing, unexpected)``."""
+        model = {"student": self.model,
+                 "teacher": self.teacher_model}.get(role, False)
+        if model is False:
+            raise ValueError(f"role {role!r}: use 'student' or 'teacher'")
+        if model is None:
+            raise ValueError("this trainer has no teacher")
+        _, missing, unexpected = restore_reference_checkpoint(
+            model, path, key_map=pretrain_to_nav_key_map)
+        return missing, unexpected
+
+    def _state(self) -> dict:
+        """The train state by name: each model's parameters and each
+        optimizer's state (``None`` where the trainer has no such model or
+        optimizer), ``iteration`` and the rollout-seed generator."""
+        teacher, t_opt = self.teacher_model, self.t_opt
+        return {"params": self.model.state_dict(),
+                "opt_state": self.opt.state_dict(),
+                "critic_params": self.critic.state_dict(),
+                "t_params": None if teacher is None else teacher.state_dict(),
+                "t_opt_state": None if t_opt is None else t_opt.state_dict(),
+                "iteration": self.iteration,
+                "seeds": self._seeds.bit_generator.state}
+
+    def save_state(self, ckpt_dir: str, name: str = "train_state") -> str:
+        """The whole resumable train state under ``name`` in ``ckpt_dir``:
+        the parameters of every model, both optimizers, ``iteration`` and
+        the rollout-seed generator."""
+        return CheckpointManager(ckpt_dir).save(name, self._state())
+
+    def load_state(self, ckpt_dir: str, name: str = "train_state") -> bool:
+        """Restore what ``save_state`` wrote; False if it is absent.  The
+        data order resumes from ``seed + iteration`` (trainer.py:672)."""
+        mgr = CheckpointManager(ckpt_dir)
+        if not mgr.has(name):
+            return False
+        state = mgr.restore(name, map_location=self.device)
+        for key, mine in (("t_params", self.teacher_model),
+                          ("t_opt_state", self.t_opt)):
+            if (state[key] is None) != (mine is None):
+                raise ValueError(f"train state {key}: the trainer has "
+                                 f"{'no' if mine is None else 'a'} "
+                                 "matching model or optimizer")
+        self.model.load_state_dict(state["params"])
+        self.opt.load_state_dict(state["opt_state"])
+        self.critic.load_state_dict(state["critic_params"])
+        if self.teacher_model is not None:
+            self.teacher_model.load_state_dict(state["t_params"])
+        if self.t_opt is not None:
+            self.t_opt.load_state_dict(state["t_opt_state"])
+        self.iteration = int(state["iteration"])
+        self._seeds.bit_generator.state = state["seeds"]
+        self._data_rng = np.random.default_rng(self.cfg.train.seed
+                                               + self.iteration)
+        return True
+
     # ----- not ported yet -----
 
     def use_mesh(self, mesh):
         raise _todo("training on a device mesh")
-
-    def save_state(self, ckpt_dir, name="train_state"):
-        raise _todo("Trainer.save_state")
-
-    def load_state(self, ckpt_dir, name="train_state"):
-        raise _todo("Trainer.load_state")
 
     def update_ability_grads(self, items, ema=0.5):
         raise _todo("the 'grad' ability weights (update_ability_grads)")

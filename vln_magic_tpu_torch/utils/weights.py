@@ -7,7 +7,8 @@ LayerNorm ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``,
 ``bias`` -> ``bias``, and a parameter that a module holds directly (the
 learned ability weights ``kdl_*_weight``) -> the parameter of that name.
 ``models.vlnbert.Critic`` names its layers ``Dense_0``/``Dense_1``, as flax
-does.
+does.  ``utils.checkpoint`` reads and writes the same names in the reference
+``.pt`` container.
 """
 
 from __future__ import annotations
@@ -39,20 +40,26 @@ def _flax_names(model: nn.Module) -> dict[str, tuple[torch.Tensor, bool]]:
     return names
 
 
-def load_flax_params(model: nn.Module, flat: dict) -> None:
+def load_flax_params(model: nn.Module, flat: dict, strict: bool = True):
     """Copy ``flat`` (flax flat names -> arrays) into ``model`` in place.
 
-    Raises ``KeyError`` on a missing or unmatched name and ``ValueError`` on
-    a shape mismatch, so a partial load never passes silently."""
+    ``strict`` (the default) raises ``KeyError`` on a missing or unmatched
+    name, so a partial load never passes silently.  ``strict=False`` is
+    JAX's template load (``unflatten_params`` with a template): a parameter
+    absent from ``flat`` keeps its value, a name the model lacks is not
+    loaded, and both are returned as ``(missing, unexpected)``, sorted.  A
+    shape mismatch raises ``ValueError`` either way."""
     names = _flax_names(model)
     missing = sorted(set(names) - set(flat))
     unmatched = sorted(set(flat) - set(names))
-    if missing or unmatched:
+    if strict and (missing or unmatched):
         raise KeyError(f"flax params do not match the model: missing "
                        f"{missing[:5]} ({len(missing)}), unmatched "
                        f"{unmatched[:5]} ({len(unmatched)})")
     with torch.no_grad():
         for name, (param, transpose) in names.items():
+            if name not in flat:
+                continue
             arr = np.array(flat[name], dtype=np.float32)    # a writable copy
             if transpose:
                 arr = arr.T
@@ -60,17 +67,21 @@ def load_flax_params(model: nn.Module, flat: dict) -> None:
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(param.shape)}")
             param.copy_(torch.from_numpy(arr.copy(order="C")))
+    return missing, unmatched
 
 
 def export_flax_params(model: nn.Module) -> dict[str, np.ndarray]:
     """``model``'s parameters as flat flax names in the flax layouts (Dense
     kernels [in, out]), f32 numpy: the inverse of ``load_flax_params``,
     which loads them back bit for bit (a bf16 model's values are exact in
-    f32).  Serving bundles and int8 quantization (``utils.quantize``) work
-    on this layout, as JAX's do."""
+    f32).  The arrays are copies, which later updates leave as they are.
+    Serving bundles and int8 quantization (``utils.quantize``) work on this
+    layout, as JAX's do."""
     out = {}
     for name, (param, transpose) in _flax_names(model).items():
-        x = param.detach().float().cpu()
+        # a copy: an f32 CPU parameter's numpy view would follow its
+        # updates
+        x = param.detach().to("cpu", torch.float32, copy=True)
         out[name] = (x.t() if transpose else x).contiguous().numpy()
     return out
 
@@ -122,18 +133,3 @@ def init_params(model: nn.Module, seed: int, std: float = 0.02) -> None:
             else:
                 val = torch.randn(param.shape, generator=gen) * std
             param.copy_(val)
-
-
-def load_reference_checkpoint(path: str) -> dict[str, np.ndarray]:
-    """Read the reference ``.pt`` container (``{"vln_bert": {"state_dict":
-    {flax name: tensor}}}``, as vln_magic_tpu/utils/checkpoint.py writes it)
-    into a flat dict for :func:`load_flax_params`."""
-    states = torch.load(path, map_location="cpu", weights_only=True)
-    blob = states.get("vln_bert", states)
-    state_dict = blob.get("state_dict", blob)
-    flat = {}
-    for name, tensor in state_dict.items():
-        if name.startswith("module."):      # DDP prefix
-            name = name[len("module."):]
-        flat[name] = tensor.detach().numpy()
-    return flat
