@@ -107,15 +107,39 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     tiny JAX student and teacher, the spec, one batch a task, JAX's
     metrics, gradient norms and leaves after one sgd step) through the
     port's step on the card in f32, TF32 off, the teacher on the packed
-    kernel: every metric to 1e-5, the norms and leaves to 1e-4.
+    kernel: every metric to 1e-5, the norms and leaves to 1e-4;
+13. the navigation CLI (``vln_magic_tpu_torch.cli.main_nav``) with the
+    shipped scripts' flags on a dataset tree in the reference's layout
+    (``write_dataset_tree``: 3 scans x 320 viewpoints, R2R annotations
+    with 200-token encodings, RxR ones with 250, no HDF5 file, so the hash
+    feature store at CLIP width 768), each run in this process with the
+    kernel counts at 0 before and read after, which must stay 0 (no flag
+    sets ``use_pallas_attention``, as in JAX): (a) ``run_r2r_valid.sh``
+    plus ``--test --detailed_output`` from a ``.pt`` of seeded MAGIC-S
+    weights: finite metrics, the submission files, items/s per split, and
+    val_seen's predictions equal to ``Navigator.evaluate`` called
+    directly; (b) ``run_r2r_kdl.sh`` (MAGIC teacher + MAGIC-S, f32) for 2
+    iterations, then ``--auto_resume`` to 4: the files of training, finite
+    metrics, ms an iteration, peak memory; (c) ``run_rxr_kdl.sh`` (T 28,
+    250 tokens, gmap 208, the nDTW expert) for 1 iteration: ms a step, the
+    device events of one expert call, and on one DAgger state the nDTW
+    scores on the card within 1e-5 of the CPU's and equal expert actions;
+    (d) ``--mode serve`` in a child process over a pipe, episodes on a
+    64-node scan until 12 decisions, ``save``/``restore`` mid-episode,
+    every decision equal to an in-process ``NavServer`` session,
+    ``latency_ms``.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
 
 from __future__ import annotations
 
+import base64
+import contextlib
+import copy
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -1884,6 +1908,590 @@ def phase_golden_pretrain(card):
     return sum(want.values())
 
 
+# ---- phase 13: the navigation CLI on a dataset tree ---------------------
+
+# R2R's own instruction counts per split (the test split: 1,391 paths x 3)
+R2R_SIZES = {"train": 2000, "val_seen": 1021, "val_unseen": 2349,
+             "test": 4173}
+# what phase 13 writes: R2R's sizes with the cuts that keep the phase near
+# two minutes (each cut is printed)
+CLI_R2R = {"train": 2000, "val_seen": 1021, "val_unseen": 256, "test": 256}
+CLI_RXR = {"train": 200, "val_unseen": 200}
+RXR_LANGS = ("en-US", "en-IN", "hi-IN", "te-IN")
+CLI_SCANS, CLI_NODES = 3, 320           # the main path's world size
+CLI_SERVE_DECISIONS, CLI_SERVE_EPISODES = 200, 64  # serve CLI, as phase 10
+# the shipped scripts' flags (scripts/run_r2r_valid.sh, run_r2r_kdl.sh,
+# run_rxr_kdl.sh) without --root_dir/--output_dir and --iters/--log_every
+R2R_VALID_FLAGS = ["--dataset", "r2r", "--name", "r2r_magic_s_valid",
+                   "--mode", "valid", "--batch_size", "16",
+                   "--max_action_len", "15", "--student_hidden_size", "128",
+                   "--student_num_attention_heads", "2", "--submit"]
+R2R_KDL_FLAGS = [
+    "--dataset", "r2r", "--name", "r2r_magic_s", "--mode", "train",
+    "--train_alg", "dagger", "--batch_size", "16", "--lr", "4e-5",
+    "--ml_weight", "0.2", "--max_action_len", "15", "--max_instr_len", "200",
+    "--expert_policy", "spl", "--feat_dropout", "0.4", "--train_kdl",
+    "--teacher_hidden_size", "768", "--teacher_num_attention_heads", "12",
+    "--student_hidden_size", "128", "--student_num_attention_heads", "2",
+    "--kdl_alpha", "0.5", "--kdl_logit_loss", "kd",
+    "--kdl_adaptive_ability_weight", "--kdl_adaptive_ability_weight_type",
+    "RW", "--teacher_sample_hard_mining", "--t_sample_preprocess", "exp",
+    "--t_sample_preprocess_exp_decay", "0.7"]
+RXR_KDL_FLAGS = [
+    "--dataset", "rxr", "--name", "rxr_magic_s", "--mode", "train",
+    "--train_alg", "dagger", "--batch_size", "16", "--lr", "4e-5",
+    "--max_action_len", "28", "--max_instr_len", "250",
+    "--expert_policy", "ndtw", "--train_kdl", "--teacher_hidden_size", "768",
+    "--student_hidden_size", "128", "--student_num_attention_heads", "2"]
+
+
+def _pose(p):
+    """A row-major 4x4 camera pose with the position at 3, 7, 11 (the
+    reference's connectivity layout, utils/data.py:95)."""
+    m = np.eye(4).ravel().tolist()
+    m[3], m[7], m[11] = (float(x) for x in p)
+    return m
+
+
+def write_dataset_tree(root, num_scans, nodes_per_scan, r2r, rxr=None,
+                       seed=0, r2r_tokens=200, rxr_tokens=250,
+                       vocab_size=50265, hdf5_dim=None):
+    """A dataset tree in the reference's layout under ``root``, from a
+    synthetic world's graphs: ``R2R/connectivity/<scan>_connectivity.json``
+    (poses, ``unobstructed``, ``included``), ``R2R/annotations/
+    R2R_<split>_enc.json`` with ``r2r[split]`` instructions (three a path,
+    ``r2r_tokens``-token ``instr_encodings``) and, for ``rxr``,
+    ``RxR_<split>_guide_enc_xlmr.jsonl`` (one instruction a path of at most
+    24 nodes, ``rxr_tokens`` tokens, languages cycling through
+    ``RXR_LANGS``); with ``hdf5_dim`` also the CLIP views file
+    ``R2R/features/CLIP-ViT-B-16-views.hdf5`` (fp16 [36, hdf5_dim] a
+    viewpoint; needs h5py).  Returns the world."""
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    world = make_synthetic_world(num_scans=num_scans,
+                                 nodes_per_scan=nodes_per_scan, feat_dim=1,
+                                 seed=seed)
+    conn = os.path.join(root, "R2R", "connectivity")
+    anno = os.path.join(root, "R2R", "annotations")
+    os.makedirs(conn, exist_ok=True)
+    os.makedirs(anno, exist_ok=True)
+    for g in world.graphs:
+        with open(os.path.join(conn, f"{g.scan}_connectivity.json"), "w") as f:
+            json.dump([{"image_id": vp, "pose": _pose(g.positions[i]),
+                        "included": True,
+                        "unobstructed": g.adjacency[i].tolist(),
+                        "visible": g.adjacency[i].tolist(),
+                        "height": float(g.positions[i][2])}
+                       for i, vp in enumerate(g.node_ids)], f)
+    rng = np.random.default_rng(seed)
+    enc = lambda n: [0] + rng.integers(4, vocab_size, n - 2).tolist() + [2]
+    for s, (split, n) in enumerate(r2r.items()):
+        paths = make_synthetic_instructions(world, -(-n // 3), rng,
+                                            min_path=3, max_path=6)
+        data = []
+        for k, it in enumerate(paths):
+            m = min(3, n - 3 * k)
+            data.append({"path_id": 10000 * s + k, "scan": it["scan"],
+                         "path": it["path"], "heading": it["heading"],
+                         "instructions": [it["instruction"]] * m,
+                         "instr_encodings": [enc(r2r_tokens)
+                                             for _ in range(m)]})
+        with open(os.path.join(anno, f"R2R_{split}_enc.json"), "w") as f:
+            json.dump(data, f)
+    for split, n in (rxr or {}).items():
+        paths = make_synthetic_instructions(world, n, rng, min_path=4,
+                                            max_path=23)
+        with open(os.path.join(anno, f"RxR_{split}_guide_enc_xlmr.jsonl"),
+                  "w") as f:
+            for k, it in enumerate(paths):
+                f.write(json.dumps({
+                    "instruction_id": 50000 + k, "path_id": 90000 + k,
+                    "scan": it["scan"], "path": it["path"],
+                    "heading": it["heading"],
+                    "instruction": it["instruction"],
+                    "language": RXR_LANGS[k % len(RXR_LANGS)],
+                    "instr_encoding": enc(rxr_tokens)}) + "\n")
+    if hdf5_dim:
+        from vln_magic_tpu_torch.data.features import write_hdf5_features
+
+        feat_dir = os.path.join(root, "R2R", "features")
+        os.makedirs(feat_dir, exist_ok=True)
+        write_hdf5_features(
+            os.path.join(feat_dir, "CLIP-ViT-B-16-views.hdf5"),
+            {f"{g.scan}_{vp}": rng.standard_normal((36, hdf5_dim))
+             for g in world.graphs for vp in g.node_ids})
+    return world
+
+
+def observation_message(obs):
+    """An ``Observation`` as the serve protocol's JSON message, features in
+    base64 f32."""
+    return {"type": "observation", "node": obs.node,
+            "position": [float(x) for x in obs.position],
+            "heading": float(obs.heading),
+            "pano_feats": base64.b64encode(np.ascontiguousarray(
+                obs.pano_feats, np.float32).tobytes()).decode(),
+            "candidates": [{"node": c.node,
+                            "position": [float(x) for x in c.position],
+                            "dist": c.dist, "heading": c.heading,
+                            "elevation": c.elevation, "view": c.view}
+                           for c in obs.candidates]}
+
+
+def same_predictions(what, got, want, tol):
+    """Equal instruction ids and trajectories; the ``details`` stop
+    probabilities within ``tol``."""
+    if [p["instr_id"] for p in got] != [p["instr_id"] for p in want]:
+        raise AssertionError(f"{what}: other instructions")
+    for a, b in zip(got, want):
+        if a["trajectory"] != b["trajectory"]:
+            raise AssertionError(f"{what} {a['instr_id']}: trajectory "
+                                 f"{a['trajectory']} != {b['trajectory']}")
+        da, db = a.get("details", {}), b.get("details", {})
+        if sorted(da) != sorted(db) or any(
+                abs(da[k]["stop_prob"] - db[k]["stop_prob"]) > tol
+                for k in da):
+            raise AssertionError(f"{what} {a['instr_id']}: details differ")
+
+
+@contextlib.contextmanager
+def _recorded(owner, name):
+    """Wrap ``owner.name`` so that each call appends (synchronised wall
+    seconds, positional arguments, the result) to the yielded list."""
+    orig = getattr(owner, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, args, out))
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+
+
+def _cli(argv):
+    """The port's ``main_nav`` in this process with the kernel counts set
+    to 0 just before and read just after; no kernel may launch (no flag
+    sets ``use_pallas_attention``, as in JAX): (result, wall seconds, peak
+    device bytes, launches)."""
+    from vln_magic_tpu_torch.cli.main_nav import main as cli_main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"main_nav {argv[:6]}: kernel launches "
+                             f"{launches}, want 0")
+    return out, wall, torch.cuda.max_memory_allocated(), launches
+
+
+def _finite_metrics(what, results):
+    for split, avg in results.items():
+        bad = {k: v for k, v in avg.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{what} {split}: {bad}")
+
+
+def _cli_valid(card, root, out):
+    """Phase 13 (a): ``run_r2r_valid.sh``'s flags plus ``--test`` and
+    ``--detailed_output`` from a ``.pt`` of seeded MAGIC-S weights; the
+    val_seen predictions equal ``Navigator.evaluate`` called directly."""
+    from vln_magic_tpu_torch.agent.evaluator import submission_format
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.cli.main_nav import (build_config, build_dataset,
+                                                  feature_store, parse_args)
+    from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
+    from vln_magic_tpu_torch.utils.checkpoint import (
+        restore_reference_checkpoint, save_reference_checkpoint)
+    from vln_magic_tpu_torch.utils.weights import init_params
+
+    argv = R2R_VALID_FLAGS + ["--root_dir", root, "--output_dir", out,
+                              "--test", "--detailed_output"]
+    args = parse_args(argv)
+    cfg = build_config(args)
+    store = type(feature_store(args, cfg.model.image_feat_size)).__name__
+    model = DualScaleVLNBert(cfg.model, device="cuda")
+    init_params(model, 0)
+    pt = os.path.join(out, "magic_s_seed0.pt")
+    save_reference_checkpoint(model, pt, epoch=3)
+    del model
+    argv += ["--resume_file", pt]
+    from vln_magic_tpu_torch.agent import navigator as nav_mod
+
+    with _recorded(nav_mod.Navigator, "evaluate") as calls:
+        results, wall, peak, launches = _cli(argv)
+    _finite_metrics("cli valid", results)
+    pred_dir = parse_args(argv).pred_dir
+    splits, order = {}, ("val_seen", "val_unseen", "test")
+    if [len(c[1][1]) for c in calls] != [CLI_R2R[s] for s in order]:
+        raise AssertionError(f"cli valid evaluated {len(calls)} splits")
+    for split, (dt, (_, items), (_, preds)) in zip(order, calls):
+        splits[split] = {"items": len(items), "s": dt,
+                         "items_per_s": len(items) / dt}
+        with open(os.path.join(pred_dir, f"submit_{split}.json")) as f:
+            if json.load(f) != json.loads(json.dumps(
+                    submission_format(preds))):
+                raise AssertionError(f"submit_{split}.json differs from "
+                                     "the evaluated predictions")
+        if not all("details" in p for p in preds):
+            raise AssertionError("--detailed_output: a prediction has no "
+                                 "details")
+    # the same world and weights through Navigator.evaluate directly
+    world, items = build_dataset(args, cfg)
+    nav = Navigator(cfg, world, device="cuda")
+    restore_reference_checkpoint(nav.model, pt)
+    (_, _), direct = nav.evaluate(items["val_seen"], detailed_output=True)
+    same_predictions("cli valid val_seen", calls[0][2][1], direct, 1e-6)
+    emit({"phase": "cli_valid", "flags": "scripts/run_r2r_valid.sh + --test "
+          "--detailed_output --resume_file", "feature_store": store,
+          "wall_s": wall, "splits": splits, "metrics": results,
+          "val_seen_equals_navigator": True, "peak_bytes": peak,
+          "kernels": launches, "card": card})
+    return pt, launches
+
+
+def _cli_valid_streamed(card, root, out, pt):
+    """Phase 13 (a'): ``run_r2r_valid.sh``'s own flags from the same
+    ``.pt``; without ``--detailed_output`` each split streams
+    (``shard_items``, the streamed ``evaluate``, ``gather_predictions``):
+    the submission files equal the evaluated predictions, and val_unseen's
+    predictions equal ``Navigator.evaluate`` called directly."""
+    from vln_magic_tpu_torch.agent import navigator as nav_mod
+    from vln_magic_tpu_torch.agent.evaluator import submission_format
+    from vln_magic_tpu_torch.cli.main_nav import (build_config, build_dataset,
+                                                  parse_args)
+    from vln_magic_tpu_torch.utils.checkpoint import (
+        restore_reference_checkpoint)
+
+    argv = R2R_VALID_FLAGS + ["--root_dir", root, "--output_dir",
+                              os.path.join(out, "streamed"),
+                              "--resume_file", pt]
+    with _recorded(nav_mod.Navigator, "evaluate") as calls, \
+            _recorded(nav_mod.Navigator, "_evaluate_stream") as streamed:
+        results, wall, peak, launches = _cli(argv)
+    _finite_metrics("cli valid streamed", results)
+    if len(streamed) != len(calls) or not calls:
+        raise AssertionError(f"cli valid: {len(streamed)} of {len(calls)} "
+                             "splits streamed")
+    args = parse_args(argv)
+    splits, order = {}, ("val_seen", "val_unseen", "test")   # --submit: test
+    if [len(c[1][1]) for c in calls] != [CLI_R2R[s] for s in order]:
+        raise AssertionError(f"cli valid streamed evaluated {len(calls)} "
+                             "splits")
+    for split, (dt, (_, items), (_, preds)) in zip(order, calls):
+        splits[split] = {"items": len(items), "s": dt,
+                         "items_per_s": len(items) / dt}
+        with open(os.path.join(args.pred_dir, f"submit_{split}.json")) as f:
+            if json.load(f) != json.loads(json.dumps(
+                    submission_format(preds))):
+                raise AssertionError(f"streamed submit_{split}.json differs "
+                                     "from the evaluated predictions")
+    unseen = calls[1][2][1]
+    cfg = build_config(args)
+    world, items = build_dataset(args, cfg)
+    nav = nav_mod.Navigator(cfg, world, device="cuda")
+    restore_reference_checkpoint(nav.model, pt)
+    (_, _), direct = nav.evaluate(items["val_unseen"])
+    same_predictions("cli valid streamed val_unseen", unseen, direct, 0.0)
+    emit({"phase": "cli_valid_streamed", "flags": "scripts/run_r2r_valid.sh "
+          "+ --resume_file", "wall_s": wall, "splits": splits,
+          "metrics": results, "val_unseen_equals_navigator": True,
+          "peak_bytes": peak, "kernels": launches, "card": card})
+    return launches
+
+
+def _cli_train(card, root, out):
+    """Phase 13 (b): ``run_r2r_kdl.sh``'s flags, two iterations, then
+    ``--auto_resume`` to four."""
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+    from vln_magic_tpu_torch.cli.main_nav import parse_args
+
+    argv = R2R_KDL_FLAGS + ["--root_dir", root, "--output_dir", out,
+                            "--log_every", "2", "--for_debug"]
+    runs = []
+    for extra in (["--iters", "2"], ["--iters", "4", "--auto_resume"]):
+        with _recorded(Trainer, "train_step") as steps:
+            trainer, wall, peak, launches = _cli(argv + extra)
+        runs.append({"iters": extra[1], "wall_s": wall,
+                     "ms_per_iteration": [1e3 * s[0] for s in steps],
+                     "peak_bytes": peak, "metrics": steps[-1][2]})
+        _finite_metrics("cli train", {"step": steps[-1][2]})
+    if trainer.iteration != 4:
+        raise AssertionError(f"--auto_resume reached iteration "
+                             f"{trainer.iteration}, want 4")
+    a = parse_args(argv + ["--iters", "4"])
+    files = {d: sorted(os.listdir(d)) for d in (a.ckpt_dir, a.log_dir)}
+    need = {a.ckpt_dir: {"best_val_seen.pt", "best_val_unseen.pt",
+                         "latest_dict.pt", "train_state"},
+            a.log_dir: {"training_args.json", "metrics.jsonl", "train.txt"}}
+    for d, names in need.items():
+        if not names <= set(files[d]):
+            raise AssertionError(f"cli train: {d} holds {files[d]}")
+    with open(os.path.join(a.log_dir, "train.txt")) as f:
+        record = f.read()
+    if "auto-resumed train state at iter 2" not in record:
+        raise AssertionError("cli train: --auto_resume did not resume at 2")
+    with open(os.path.join(a.log_dir, "metrics.jsonl")) as f:
+        for line in f:
+            if not all(math.isfinite(v) for v in json.loads(line).values()):
+                raise AssertionError(f"cli train: metrics {line}")
+    emit({"phase": "cli_train", "flags": "scripts/run_r2r_kdl.sh + --iters "
+          "2 --log_every 2 --for_debug, then --iters 4 --auto_resume",
+          "compute": "float32, TF32 off", "runs": runs,
+          "kernels": launches, "card": card})
+    return launches
+
+
+def _cli_train_ndtw(card, root, out):
+    """Phase 13 (c): ``run_rxr_kdl.sh``'s flags, one iteration; on one
+    DAgger state of it, the nDTW scores and the expert's actions on the
+    card against the same call on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_magic_tpu_torch.agent.rollout import Rollout, Tables
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+
+    argv = RXR_KDL_FLAGS + ["--root_dir", root, "--output_dir", out,
+                            "--iters", "1", "--log_every", "1",
+                            "--for_debug"]
+    grabbed = []
+    orig = Rollout.teacher_action
+
+    def grab(self, state, gmap, t_step, imitation, ep):
+        if not imitation and t_step == 8 and not grabbed:
+            clone = lambda d: {k: v.clone() for k, v in d.items()
+                               if torch.is_tensor(v)}
+            grabbed.append((self, dataclasses.replace(state, **{
+                f.name: getattr(state, f.name).clone()
+                for f in dataclasses.fields(state)
+                if getattr(state, f.name) is not None}), clone(gmap),
+                clone(ep)))
+        return orig(self, state, gmap, t_step, imitation, ep)
+
+    Rollout.teacher_action = grab
+    try:
+        with _recorded(Trainer, "train_step") as steps:
+            trainer, wall, peak, launches = _cli(argv)
+    finally:
+        Rollout.teacher_action = orig
+    if not grabbed:
+        raise AssertionError("cli train ndtw: no DAgger expert call at step 8")
+    r, state, gmap, ep = grabbed[0]
+    if int(state.traj_len.max()) <= 1:
+        raise AssertionError("cli train ndtw: the trajectory was not recorded")
+    scores = r._ndtw_scores(state, gmap, ep)
+    actions = r.teacher_action(state, gmap, 8, False, ep)
+    counts = {}
+    for name, fn in (("ndtw_scores", lambda: r._ndtw_scores(state, gmap, ep)),
+                     ("expert_action", lambda: r.teacher_action(
+                         state, gmap, 8, False, ep))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts[name] = sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    rc = copy.copy(r)
+    rc.t = Tables(**{f.name: getattr(r.t, f.name).cpu()
+                     for f in dataclasses.fields(r.t)})
+    sc = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).cpu()
+        for f in dataclasses.fields(state)
+        if getattr(state, f.name) is not None})
+    ref_scores = rc._ndtw_scores(sc, cpu(gmap), cpu(ep))
+    ref_actions = rc.teacher_action(sc, cpu(gmap), 8, False, cpu(ep))
+    err = float((scores.cpu() - ref_scores).abs().max())
+    if err > 1e-5 or not torch.equal(actions.cpu(), ref_actions):
+        raise AssertionError(f"nDTW on the card: {err} from the CPU's, "
+                             f"actions equal: "
+                             f"{torch.equal(actions.cpu(), ref_actions)}")
+    emit({"phase": "cli_train_ndtw", "flags": "scripts/run_rxr_kdl.sh + "
+          "--iters 1 --log_every 1 --for_debug", "T": 28, "wall_s": wall,
+          "ms_per_step": [1e3 * s[0] for s in steps], "peak_bytes": peak,
+          "metrics": steps[-1][2], "ndtw_max_abs_err_vs_cpu": err,
+          "expert_actions_equal_cpu": True, "device_events_per_call": counts,
+          "scores_shape": list(scores.shape), "kernels": launches,
+          "card": card})
+    return launches
+
+
+class _ServeRobot:
+    """The serve protocol's client as the CLI's stdin: it replays a script
+    of episodes recorded from an in-process session, one line after the
+    CLI has answered the one before, and holds every answer (read from
+    ``out``, the CLI's stdout) to the script: decisions, the save and
+    restore after ``save_at``'s first decision, each final trajectory."""
+
+    def __init__(self, script, save_at, blob):
+        self.script, self.save_at, self.blob = script, save_at, blob
+        self.out = io.StringIO()
+        self.latency, self.first_read = [], None
+
+    def _reply(self, want_type):
+        lines = self.out.getvalue().splitlines()
+        msg = json.loads(lines[-1]) if lines else {}
+        if msg.get("type") != want_type:
+            raise AssertionError(f"serve CLI: {msg}, want {want_type}")
+        return msg
+
+    def __iter__(self):
+        self.first_read = time.perf_counter()
+        self._reply("loaded")
+        for e, (instr, steps, trajectory) in enumerate(self.script):
+            yield json.dumps({"type": "session", "instruction": instr})
+            self._reply("ready")
+            for k, (obs, want) in enumerate(steps):
+                yield json.dumps(observation_message(obs))
+                got = self._reply("decision")
+                if (got["stop"], got["target"], got["path"]) != \
+                        (want.stop, want.target, want.path):
+                    raise AssertionError(f"serve CLI episode {e} step {k}: "
+                                         f"{got}, in-process {want}")
+                self.latency.append(got["latency_ms"])
+                if (e, k) == self.save_at:
+                    yield json.dumps({"type": "save", "path": self.blob})
+                    saved = self._reply("saved")
+                    yield json.dumps({"type": "restore", "path": self.blob})
+                    resumed = self._reply("ready")
+                    if saved["steps"] != k + 1 or resumed["steps"] != k + 1:
+                        raise AssertionError(f"serve CLI: {saved} {resumed}")
+            yield json.dumps({"type": "finish"})
+            if self._reply("final")["trajectory"] != trajectory:
+                raise AssertionError(f"serve CLI episode {e}: final "
+                                     f"{self.out.getvalue().splitlines()[-1]}"
+                                     f", in-process {trajectory}")
+        yield json.dumps({"type": "quit"})
+
+
+def _cli_serve(card, pt, out):
+    """Phase 13 (d): ``--mode serve`` in this process, its stdin a scripted
+    robot and its stdout read back.  An in-process ``NavServer`` session on
+    the same weights first runs episodes on one 64-node scan until
+    ``CLI_SERVE_DECISIONS`` decisions and records each observation and
+    decision; the CLI then gets the same observations, the first episode
+    that moves saved and restored after its first decision, and must give
+    every decision again.  The kernel counts are the CLI's own run's."""
+    from vln_magic_tpu_torch.agent.serving import (NavServer,
+                                                   observation_from_world)
+    from vln_magic_tpu_torch.cli.main_nav import build_config, parse_args
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
+    from vln_magic_tpu_torch.utils.checkpoint import (
+        restore_reference_checkpoint)
+
+    world = make_synthetic_world(num_scans=1, nodes_per_scan=SERVE_NODES,
+                                 feat_dim=768, seed=0)
+    g = world.graphs[0]
+    c = world.tables.max_candidates
+    rng = np.random.default_rng(11)
+    items = make_synthetic_instructions(world, CLI_SERVE_EPISODES, rng,
+                                        min_path=4, max_path=7)
+    argv = ["--mode", "serve", "--name", "serve", "--output_dir", out,
+            "--student_hidden_size", "128", "--student_num_attention_heads",
+            "2", "--serve_max_nodes", str(SERVE_NODES),
+            "--serve_max_cands", str(c), "--resume_file", pt]
+    cfg = build_config(parse_args(argv))
+    model = DualScaleVLNBert(cfg.model, device="cuda")
+    restore_reference_checkpoint(model, pt)
+    server = NavServer(cfg, max_nodes=SERVE_NODES, max_cands=c, model=model,
+                       device="cuda")
+    server.warmup()
+    script, in_process, save_at = [], [], None
+    for item in items:
+        instr = rng.integers(4, 1000, 200).tolist()
+        sess = server.new_session(np.asarray(instr, np.int64))
+        cur, steps = int(item["path_idx"][0]), []
+        for _ in range(cfg.env.max_action_len):
+            obs = observation_from_world(world, 0, cur, float(item["heading"]))
+            dec = sess.step(obs)
+            steps.append((obs, dec))
+            in_process.append(dec.latency_ms)
+            if dec.stop:
+                break
+            cur = g.index[dec.target]
+        if save_at is None and len(steps) > 1:
+            save_at = (len(script), 0)
+        script.append((instr, steps, sess.finish()["trajectory"]))
+        if len(in_process) >= CLI_SERVE_DECISIONS and save_at:
+            break
+    if save_at is None or len(in_process) < CLI_SERVE_DECISIONS:
+        raise AssertionError(f"serve: {len(in_process)} decisions in "
+                             f"{len(script)} episodes, save at {save_at}")
+    del server, model, sess
+    robot = _ServeRobot(script, save_at,
+                        os.path.join(out, "serve_session.npz"))
+    stdin = sys.stdin
+    sys.stdin = robot
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(robot.out):
+            _, wall, peak, launches = _cli(argv)
+    finally:
+        sys.stdin = stdin
+    if len(robot.latency) != len(in_process):
+        raise AssertionError(f"serve CLI: {len(robot.latency)} decisions, "
+                             f"want {len(in_process)}")
+    emit({"phase": "cli_serve", "nodes": SERVE_NODES, "max_cands": c,
+          "episodes": len(script),
+          "steps_per_episode": [len(s[1]) for s in script],
+          "latency_ms": _stats(robot.latency),
+          "in_process_latency_ms": _stats(in_process),
+          "startup_s": robot.first_read - t0, "wall_s": wall,
+          "peak_bytes": peak, "equal_in_process": True,
+          "save_restore_at": {"episode": save_at[0], "after_decision": 1},
+          "kernels": launches, "card": card})
+    return launches
+
+
+def phase_cli(card):
+    """Phase 13: the port's ``main_nav`` with JAX's flags on a dataset tree
+    in the reference's layout (3 scans x 320 viewpoints, no HDF5 file:
+    the hash feature store at CLIP width 768): (a) valid with
+    ``--detailed_output`` (waves) and (a') without it (streamed), (b)
+    train, (c) train with the nDTW expert, (d) serve.  Returns the launches of each
+    run, all 0."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        root, out = os.path.join(tmp, "datasets"), os.path.join(tmp, "runs")
+        t0 = time.perf_counter()
+        write_dataset_tree(root, CLI_SCANS, CLI_NODES, CLI_R2R, CLI_RXR)
+        emit({"phase": "cli_tree", "scans": CLI_SCANS,
+              "viewpoints_per_scan": CLI_NODES, "r2r": CLI_R2R,
+              "rxr": CLI_RXR, "rxr_langs": RXR_LANGS,
+              "cuts": {s: f"{n} of R2R's {R2R_SIZES[s]}"
+                       for s, n in CLI_R2R.items() if n != R2R_SIZES[s]},
+              "train_runs": "--for_debug: 50 annotation items a split",
+              "write_s": time.perf_counter() - t0})
+        pt, valid = _cli_valid(card, root, out)
+        streamed = _cli_valid_streamed(card, root, out, pt)
+        train = _cli_train(card, root, out)
+        ndtw = _cli_train_ndtw(card, root, out)
+        serve = _cli_serve(card, pt, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"cli_valid": valid, "cli_valid_streamed": streamed,
+            "cli_train": train, "cli_train_ndtw": ndtw,
+            "cli_serve": serve}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1905,6 +2513,9 @@ def main():
     serve = phase_serving(card)
     pretrain = phase_pretraining(card, nav.world)
     golden_pretrain_launches = phase_golden_pretrain(card)
+    cli = phase_cli(card)
+    cli_note = ("the CLI runs no kernel, as JAX's does not: no flag sets "
+                "ModelConfig.use_pallas_attention")
     by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     emit({"kernels": [{
         "name": "packed_attention", "route": "cuda",
@@ -1935,14 +2546,18 @@ def main():
                              "pretrain_step": pretrain["step"],
                              "pretrain_validate": pretrain["validate"],
                              "pretrain_golden_f32":
-                                 golden_pretrain_launches},
+                                 golden_pretrain_launches,
+                             **{k: v["packed_attention"]
+                                for k, v in cli.items()}},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
                           "parity": "tensor_core", "golden_f32": "simt",
                           "serve": "tensor_core", "fleet": "tensor_core",
                           "serve_golden_f32": "simt",
                           "pretrain_step": "simt",
                           "pretrain_validate": "simt",
-                          "pretrain_golden_f32": "simt"},
+                          "pretrain_golden_f32": "simt",
+                          **{k: "none" for k in cli}},
+        "cli_note": cli_note,
         "per": "one wave of the main path (216 launches, bf16, tensor-core "
                "route)"}, {
         "name": "fused_attention", "route": "cuda",
@@ -1956,11 +2571,15 @@ def main():
         "eager_ms": fused["eager_ms"], "simt_ms": fused["simt_ms"],
         "exact_limit_used": fused["exact_limit_used"],
         "tc_launches": fused["tc_launches"],
-        "route_by_path": {"entry_point": "tensor_core", "f32": "simt"},
+        "route_by_path": {"entry_point": "tensor_core", "f32": "simt",
+                          **{k: "none" for k in cli}},
         "launches_by_path": {"entry_point": fused["launches"],
                              "train_step": train_launches["fused_attention"],
                              # phase 11 raises on any fused launch
-                             "pretrain_step": 0, "pretrain_validate": 0},
+                             "pretrain_step": 0, "pretrain_validate": 0,
+                             **{k: v["fused_attention"]
+                                for k, v in cli.items()}},
+        "cli_note": cli_note,
         "per": "its entry point once at each of the six MAGIC-S path "
                "shapes (6 launches, bf16, tensor-core route); no model path "
                "calls it, the train step included"}]})

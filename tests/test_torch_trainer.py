@@ -387,7 +387,6 @@ UNPORTED = {
     "fix_lang_embedding": {"train": {"fix_lang_embedding": True}},
     "bf16_grads": {"train": {"grads_dtype": "bfloat16"}},
     "remat_dots": {"train": {"remat": True, "remat_policy": "dots"}},
-    "ndtw_expert": {"env": {"expert_policy": "ndtw"}},
     "local_fusion": {"model": {"fusion": "local"}},
     "grad_ability_weights": {
         "distill": {"adaptive_ability_weight_type": "grad"}},

@@ -85,26 +85,32 @@ class Navigator:
         return state, aux
 
     def evaluate(self, items, feedback="argmax", batch_size=None,
-                 ensemble_n=1, stream=None):
+                 ensemble_n=1, detailed_output=False, stream=None):
         """Greedy decode + metrics over an item list.
 
+        ``detailed_output``: each prediction also gets ``details``, the
+        stop probability of every node the episode recorded one for
+        (``{node_id: {"stop_prob": p}}``, the reference's
+        ``--detailed_output``, agent.py:1091-1095).
         ``stream``: continuous-batching decode (``agent/streaming.py``):
         ended lanes refill from the item queue.  ``None`` turns it on when
-        eligible (argmax, ``ensemble_n == 1``, not parity) and there are
-        more items than ``batch_size``, as the JAX package does;
-        ``stream=True`` on an ineligible call raises ``ValueError``.
-        Otherwise the items run in waves of ``batch_size``, the tail wave
-        padded with copies of its last item."""
+        eligible (argmax, ``ensemble_n == 1``, no ``detailed_output``, not
+        parity) and there are more items than ``batch_size``, as the JAX
+        package does; ``stream=True`` on an ineligible call raises
+        ``ValueError``.  Otherwise the items run in waves of
+        ``batch_size``, the tail wave padded with copies of its last
+        item."""
         bs = batch_size or self.cfg.train.batch_size
         parity = self.cfg.env.observed_graph_parity
-        eligible = feedback == "argmax" and ensemble_n == 1 and not parity
+        eligible = (feedback == "argmax" and ensemble_n == 1
+                    and not detailed_output and not parity)
         if stream is None:
             stream = eligible and len(items) > bs
         if stream:
             if not eligible:
                 raise ValueError("stream=True needs argmax feedback, "
-                                 "ensemble_n == 1 and the full-table "
-                                 "(non-parity) path")
+                                 "ensemble_n == 1, no detailed_output and "
+                                 "the full-table (non-parity) path")
             return self._evaluate_stream(items, bs)
         preds = []
         gmap_overflow = semantic_steps = 0
@@ -113,7 +119,8 @@ class Navigator:
             n_real = len(chunk)
             if n_real < bs:
                 chunk = chunk + [chunk[-1]] * (bs - n_real)
-            _, aux = self.run_items(chunk, feedback, ensemble_n=ensemble_n)
+            state, aux = self.run_items(chunk, feedback,
+                                        ensemble_n=ensemble_n)
             gmap_overflow += int(aux["gmap_overflow"])
             semantic_steps += int(aux["semantic_steps"])
             host = {k: v.cpu().numpy() for k, v in aux.items()}
@@ -125,7 +132,16 @@ class Navigator:
                 chunk_preds = build_trajectories(
                     self.world, chunk, host["actions"], host["stop_node"],
                     host["final_cur"])
-            preds.extend(chunk_preds[:n_real])
+            chunk_preds = chunk_preds[:n_real]
+            if detailed_output:
+                scores = state.stop_scores.cpu().numpy()
+                for b, p in enumerate(chunk_preds):
+                    g = self.world.graphs[p["scan_idx"]]
+                    p["details"] = {
+                        g.node_ids[i]: {"stop_prob": float(scores[b, i])}
+                        for i in np.flatnonzero(
+                            scores[b, : g.num_nodes] > -1e8)}
+            preds.extend(chunk_preds)
         avg, per_item = Evaluator(self.world, items).eval_metrics(preds)
         # episodes whose observed-node count outgrew max_gmap_len (tokens
         # truncated), the live episode-steps decoded (padding included) and

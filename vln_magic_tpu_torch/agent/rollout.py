@@ -86,6 +86,9 @@ class Tables:
 
         def conv(a):
             a = np.asarray(a)
+            if a.dtype.name == "bfloat16":      # ml_dtypes (--feat_dtype)
+                return torch.from_numpy(a.view(np.int16)).to(device).view(
+                    torch.bfloat16)
             if np.issubdtype(a.dtype, np.integer):
                 a = a.astype(np.int64)
             return torch.from_numpy(a).to(device)
@@ -541,10 +544,11 @@ class Rollout:
         """The supervision target in the gmap action space (the reference's
         ``_teacher_action``): with ``imitation``, the ground-truth next hop
         at step ``t_step`` (0 past the path's end; ``ignore_id`` when the
-        token budget truncated it away); otherwise the DAgger ``spl``
-        expert, the unvisited token minimising dist(cur, node) +
-        dist(node, goal), or stop at the goal.  Ended rows get
-        ``ignore_id``."""
+        token budget truncated it away); otherwise the DAgger expert, stop
+        at the goal or else the unvisited token minimising dist(cur, node)
+        + dist(node, goal) (``spl``) or maximising the nDTW of the
+        trajectory extended to it (``ndtw``, ``_ndtw_scores``).  Ended rows
+        get ``ignore_id``."""
         env = self.env
         b = state.batch_size
         bi = torch.arange(b, device=state.cur.device)
@@ -557,20 +561,101 @@ class Rollout:
             a = torch.where(t_step >= state.gt_len - 1, 0,
                             torch.where(eq.any(dim=1), idx, env.ignore_id))
         else:
-            if env.expert_policy != "spl":
-                raise NotImplementedError(
-                    f"expert_policy={env.expert_policy!r} is not ported to "
-                    "vln_magic_tpu_torch yet (see ROADMAP.md)")
             n = self.t.num_nodes
             dist = ep["dist_f"]
             visited_tok = state.visited[:, :n].gather(1, token_node)
             eligible = gmap["token_valid"] & ~visited_tok
-            d_cur = dist[bi, state.cur].gather(1, token_node)
-            d_goal = dist[bi[:, None], token_node, state.goal[:, None]]
-            cost = torch.where(eligible, d_cur + d_goal, math.inf)
+            if env.expert_policy == "ndtw":
+                score = -self._ndtw_scores(state, gmap, ep)
+            elif env.expert_policy == "spl":
+                score = (dist[bi, state.cur].gather(1, token_node)
+                         + dist[bi[:, None], token_node, state.goal[:, None]])
+            else:
+                raise ValueError(
+                    f"invalid expert_policy {env.expert_policy!r}")
+            cost = torch.where(eligible, score, math.inf)
             a = torch.where(state.cur == state.goal, 0,
                             2 + cost.argmin(dim=1))
         return torch.where(state.ended, env.ignore_id, a)
+
+    def _ndtw_scores(self, state: EpisodeBatch, gmap: dict, ep: dict,
+                     k_ext: int = 16, lp: int = 48):
+        """nDTW [B, G] of each gmap token's hypothetical trajectory against
+        the ground-truth path: the first ``lp`` recorded trajectory nodes,
+        then the shortest path (at most ``k_ext`` hops) from the current
+        node to the token (the reference's per-candidate host loop,
+        eval_utils.py:6-26 via agent.py:357-363; JAX's ``_ndtw_scores``).
+
+        JAX runs the DTW as a scan over prediction rows of a scan over
+        ground-truth columns, carrying an invalid row's predecessor forward.
+        Here the valid rows are moved to the front (stably) and the DTW
+        matrix is swept by anti-diagonals, every cell of one at once:
+        lp + k_ext + TG - 1 steps of a few kernels each instead of
+        (lp + k_ext) x TG.  A cell is JAX's own f32 arithmetic, the cost
+        plus the exact minimum of its three predecessors, so the matrix
+        holds JAX's values bit for bit."""
+        t = self.t
+        b, g = gmap["token_node"].shape
+        dev = state.cur.device
+        bi = torch.arange(b, device=dev)
+        token_node = gmap["token_node"]
+        nh = ep["nh"] if "nh" in ep else t.next_hop[state.scan]
+
+        # shortest-path extension cur -> token (bounded next-hop walk)
+        p = state.cur[:, None].expand(b, g)
+        ext, ext_valid = [], []
+        for _ in range(k_ext):
+            nxt = nh[bi[:, None], p, token_node]
+            stepping = (p != token_node) & (nxt >= 0)
+            ext.append(torch.where(stepping, nxt, 0))
+            ext_valid.append(stepping)
+            p = torch.where(stepping, nxt, p)
+        traj = state.traj_nodes[:, :lp]
+        traj_valid = ((torch.arange(lp, device=dev)[None, :]
+                       < state.traj_len.clamp(max=lp)[:, None])
+                      & (traj >= 0))
+        pred = torch.cat([traj.clamp(min=0)[:, None, :].expand(b, g, lp),
+                          torch.stack(ext, 2)], dim=2)          # [B, G, L]
+        valid = torch.cat([traj_valid[:, None, :].expand(b, g, lp),
+                           torch.stack(ext_valid, 2)], dim=2)
+        # valid rows first, in order; v of them per token
+        order = torch.argsort((~valid).to(torch.uint8), dim=2, stable=True)
+        pred = pred.gather(2, order)
+        v = valid.sum(dim=2)
+
+        gt = state.gt_path.clamp(min=0)
+        tg = gt.shape[1]
+        L = pred.shape[2]
+        cost = ep["dist_f"][bi[:, None, None, None], pred[..., None],
+                            gt[:, None, None, :]]               # [B, G, L, TG]
+
+        # DTW over the padded grid P[r, j], r in [0, L], j in [0, TG]:
+        # P[0, 0] = 0, the rest of row 0 and column 0 = BIG, and
+        # P[r, j] = cost[r-1, j-1] + min(P[r-1, j], P[r, j-1], P[r-1, j-1]).
+        # Diagonal e holds the cells r + j = e, indexed by r; its buffer
+        # has a leading BIG so that "the cell at r - 1" is a slice.
+        big = 1e9
+        n_diag = L + tg + 1
+        e = torch.arange(n_diag, device=dev)[:, None]
+        r = torch.arange(L + 1, device=dev)[None, :]
+        j = e - r
+        interior = (r >= 1) & (j >= 1) & (j <= tg)              # [E, L+1]
+        flat = torch.where(interior, (r - 1) * tg + (j - 1), 0)
+        skew = cost.reshape(b, g, L * tg).gather(
+            2, flat.reshape(1, 1, -1).expand(b, g, -1)).reshape(
+            b, g, n_diag, L + 1)
+        diags = torch.full((n_diag, b, g, L + 2), big, device=dev)
+        diags[0, :, :, 1] = 0.0         # P[0, 0]; diagonal 1 is all border
+        for k in range(2, n_diag):
+            prev, prev2 = diags[k - 1], diags[k - 2]
+            best = torch.minimum(torch.minimum(prev[..., :-1], prev[..., 1:]),
+                                 prev2[..., :-1])
+            diags[k, :, :, 1:] = torch.where(interior[k], skew[:, :, k] + best,
+                                             big)
+        gt_len = state.gt_len[:, None].expand(b, g)
+        gi = torch.arange(g, device=dev)[None, :]
+        dtw = diags[v + gt_len, bi[:, None], gi, v + 1]
+        return torch.exp(-dtw / (3.0 * state.gt_len[:, None]))
 
     def select_action(self, logits, feedback: str, generator, nav_targets,
                       gmap: dict):
@@ -656,6 +741,8 @@ class Rollout:
                 state, target, moving, hops, state.traj_nodes,
                 state.traj_len)
         else:
+            # the nDTW expert reads the expanded trajectory
+            record = self.env.expert_policy == "ndtw"
             col = ep["nh"].gather(
                 2, target[:, None, None].expand(-1, trash, 1))[..., 0]
             p = prev = state.cur
@@ -663,6 +750,9 @@ class Rollout:
                 nxt = col.gather(1, p[:, None])[:, 0]
                 stepping = moving & (p != target) & (nxt >= 0)
                 prev = torch.where(stepping & (nxt == target), p, prev)
+                if record:
+                    state.traj_len = _record_hop(state.traj_nodes,
+                                                 state.traj_len, stepping, nxt)
                 p = torch.where(stepping, nxt, p)
 
         cand_prev = t.cand_ids[state.scan, prev]
@@ -842,7 +932,7 @@ class Rollout:
         this decodes (evaluation): no autograd, ``state`` updated in place.
         With ``train_ml`` (supervision: the CE of each step against
         ``teacher_action``, imitation under ``teacher`` feedback, else the
-        ``spl`` expert), ``distill`` (a ``DistillConfig``: MAKD losses
+        DAgger expert), ``distill`` (a ``DistillConfig``: MAKD losses
         against the teacher model, the teacher's own CE, and with
         ``train_teacher`` the reverse ICoD losses) or
         ``deterministic=False`` (dropout on), it is a training rollout

@@ -69,8 +69,6 @@ def refuse_unported_training(cfg: MagicConfig) -> None:
         (t.grads_dtype != "float32", f"grads_dtype={t.grads_dtype!r}"),
         (t.remat and t.remat_policy != "full",
          f"remat_policy={t.remat_policy!r}"),
-        (cfg.env.expert_policy != "spl",
-         f"expert_policy={cfg.env.expert_policy!r}"),
         (cfg.model.fusion == "local", "fusion='local' in training"),
         (d.train_kdl and d.adaptive_ability_weight
          and d.adaptive_ability_weight_type not in ("RW", "learned_weight"),

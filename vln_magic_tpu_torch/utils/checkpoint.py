@@ -133,8 +133,14 @@ class CheckpointManager:
         return path
 
     def restore(self, name: str, map_location="cpu"):
-        return torch.load(self._path(name), map_location=map_location,
-                          weights_only=True)
+        path = self._path(name)
+        if os.path.isdir(path):
+            raise ValueError(
+                f"{path} is a directory: an orbax checkpoint of the JAX "
+                "package, which this package cannot read (it reads the "
+                "files its own CheckpointManager writes; weights cross "
+                "packages as the reference .pt container)")
+        return torch.load(path, map_location=map_location, weights_only=True)
 
     def save_latest(self, tree):
         return self.save("latest", tree)
