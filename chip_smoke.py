@@ -127,7 +127,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     (d) ``--mode serve`` in a child process over a pipe, episodes on a
     64-node scan until 12 decisions, ``save``/``restore`` mid-episode,
     every decision equal to an in-process ``NavServer`` session,
-    ``latency_ms``.
+    ``latency_ms``;
+14. the model options (ROADMAP Queue 1 item 5) at the main path's shape,
+    on phase 4's navigator, world and items: (a) a ``fuse_branches`` wave
+    (the same weights; both cross-modal branches as one trunk, each
+    attention one ``packed_attention`` launch at batch 2B): 126 launches,
+    all on the tensor-core route, every call held against the plain
+    version (5e-2 and the exact limit), its wall, device time and idle
+    share (``torch.profiler``) beside an unfused wave's, the share of
+    equal trajectories; (b) in f32 (SIMT route) the intervention fixture
+    ``tests/fixtures/golden_interventions_5.npz`` (JAX's fused logits to
+    1e-5, its decode's actions equal) and a fused-branch decode of the
+    golden weights equal to ``tests/golden_decode.json``; (c) a wave with
+    all five intervention heads and seeded dictionaries (81-row backdoors,
+    24 frontdoor exemplars a family): 216 launches; (d) an ``ensemble_n``
+    3 wave: 6 launches (the deterministic language encoder); (e) after
+    phase 13's runs and on its tree, each run counted as there (0
+    launches): ``--mode extract_cfp_features`` (2,000 rows), ``valid``
+    with every text, view and map head, the dictionaries rebuilt on the
+    train split (language, CFP and k-means timed apart), ``train`` with
+    ``--z_instr_update --update_iter 1`` for 2 iterations (both roles'
+    dictionaries refreshed each), ``valid --ensemble_n 3 --for_debug``.
 
 Then the per-kernel summary line, the card line, and the result line.
 """
@@ -514,6 +534,166 @@ def phase_golden(card):
     emit({"phase": "golden_stream_equals_waves", "lanes": 4,
           "episodes": len(items), "match": True,
           "scan_steps": avg["scan_steps"], "card": card})
+
+
+# ---- phase 14's golden interventions (tests/fixtures/golden_interventions_5.npz)
+
+# a small MAGIC-S with all five intervention heads (door), the packed kernel
+# on; JAX's weights, dictionaries, fused logits and actions are the fixture
+GOLDEN_INTERVENTIONS_SPEC = {
+    "seed": 5,
+    "world": {"num_scans": 1, "nodes_per_scan": 16, "feat_dim": 24,
+              "seed": 5},
+    "items": {"num_items": 6, "vocab_size": 200, "min_path": 2,
+              "max_path": 5},
+    "model": {"vocab_size": 200, "hidden_size": 32, "num_attention_heads": 2,
+              "num_l_layers": 2, "num_pano_layers": 1, "num_x_layers": 2,
+              "image_feat_size": 24, "max_position_embeddings": 64,
+              "kd_heads": True, "kd_target_size": 48,
+              "use_pallas_attention": True, "do_back_txt": True,
+              "do_back_img": True, "do_front_txt": True,
+              "do_front_img": True, "do_front_his": True,
+              "do_add_method": "door"},
+    "env": {"max_action_len": 5, "max_gmap_len": 16, "max_instr_len": 32},
+    "train": {"batch_size": 6, "compute_dtype": "float32"},
+    # backdoor rows (padded with p 0), frontdoor rows, image-backdoor rows
+    "dicts": {"direction": 3, "landmark": 5, "pad": 8, "front": 4,
+              "img": 6},
+    "nav_batch": {"B": 3, "LT": 12, "P": 9, "G": 7},
+}
+INTERVENTIONS_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                     "golden_interventions_5.npz")
+NAV_ARGS = ("txt_embeds", "txt_masks", "gmap_img_embeds", "gmap_step_ids",
+            "gmap_pos_fts", "gmap_masks", "gmap_visited_masks",
+            "gmap_pair_dists", "vp_img_embeds", "vp_pos_fts", "vp_masks",
+            "vp_nav_masks", "gmap_local_slot", "vp_cand_visited")
+
+
+def interventions_config(module, spec=GOLDEN_INTERVENTIONS_SPEC):
+    """``spec``'s ``MagicConfig`` from ``module`` (either package's
+    ``config``)."""
+    return module.MagicConfig(model=module.ModelConfig(**spec["model"]),
+                              env=module.EnvConfig(**spec["env"]),
+                              train=module.TrainConfig(**spec["train"]))
+
+
+def interventions_zdicts(spec=GOLDEN_INTERVENTIONS_SPEC) -> dict:
+    """The student's rollout dictionaries of ``spec``, numpy from its seed
+    (``build_rollout_zdicts``' layout plus the image backdoor's
+    ``z_img_feats``/``z_img_pzs``): backdoor rows padded with p(z) 0."""
+    m, n = spec["model"], spec["dicts"]
+    rng = np.random.default_rng(spec["seed"] + 100)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+
+    def back(rows):
+        p = np.zeros((n["pad"], 1), np.float32)
+        p[:rows, 0] = rng.random(rows) + 0.1
+        p[:rows] /= p.sum()
+        feats = np.zeros((n["pad"], m["hidden_size"]), np.float32)
+        feats[:rows] = f(rows, m["hidden_size"])
+        return feats, p
+
+    dzf, dzp = back(n["direction"])
+    lzf, lzp = back(n["landmark"])
+    front = m["kd_target_size"] if m["kd_heads"] else m["hidden_size"]
+    img_p = rng.random((n["img"], 1)).astype(np.float32)
+    return {"instr_zdict": {"direction_features": dzf, "direction_pzs": dzp,
+                            "landmark_features": lzf, "landmark_pzs": lzp},
+            "front_txt_feats": f(n["front"], front),
+            "front_vp_feats": f(n["front"], front),
+            "front_gmap_feats": f(n["front"], front),
+            "z_img_feats": f(n["img"], m["image_feat_size"]),
+            "z_img_pzs": img_p / img_p.sum()}
+
+
+def interventions_nav_inputs(model_cfg, spec=GOLDEN_INTERVENTIONS_SPEC):
+    """One ``navigation`` batch (and language/panorama inputs) of numpy
+    arrays from ``spec``'s seed, with padded text, views and map tokens."""
+    nb = spec["nav_batch"]
+    b, lt, p, g = nb["B"], nb["LT"], nb["P"], nb["G"]
+    rng = np.random.default_rng(spec["seed"] + 200)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    d, p2 = model_cfg.hidden_size, p + 2
+    txt_masks = np.ones((b, lt), bool)
+    txt_masks[:, -3:] = False
+    pano_masks = np.ones((b, p), bool)
+    pano_masks[:, -2:] = False
+    gmap_masks = np.ones((b, g), bool)
+    gmap_masks[:, 1] = gmap_masks[:, -1] = False
+    gmap_visited = np.zeros((b, g), bool)
+    gmap_visited[:, 1:3] = True
+    vp_nav = np.ones((b, p2), bool)
+    vp_nav[:, 1] = False
+    vp_nav[:, -4:] = False
+    return {
+        "txt_ids": rng.integers(2, model_cfg.vocab_size, (b, lt)
+                                ).astype(np.int32),
+        "txt_masks": txt_masks,
+        "view_img_fts": f(b, p, model_cfg.image_feat_size),
+        "loc_fts": f(b, p, model_cfg.loc_feat_size),
+        "nav_types": rng.integers(0, 3, (b, p)).astype(np.int32),
+        "pano_masks": pano_masks,
+        "txt_embeds": f(b, lt, d),
+        "gmap_img_embeds": f(b, g, d),
+        "gmap_step_ids": rng.integers(0, 5, (b, g)).astype(np.int32),
+        "gmap_pos_fts": f(b, g, model_cfg.gmap_pos_size),
+        "gmap_masks": gmap_masks,
+        "gmap_visited_masks": gmap_visited,
+        "gmap_pair_dists": np.abs(f(b, g, g)) * 5.0,
+        "vp_img_embeds": f(b, p2, d),
+        "vp_pos_fts": f(b, p2, model_cfg.vp_pos_size),
+        "vp_masks": np.concatenate([np.ones((b, 2), bool), pano_masks], 1),
+        "vp_nav_masks": vp_nav,
+        "gmap_local_slot": rng.integers(-1, p2, (b, g)).astype(np.int32),
+        "vp_cand_visited": (rng.random((b, p2)) < 0.3).astype(np.float32),
+    }
+
+
+def golden_interventions(device="cuda"):
+    """The intervention fixture through the port on ``device`` in f32:
+    the navigation batch's fused logits against JAX's (1e-5) and the
+    decode of the fixture's items with the student's dictionaries (actions
+    equal).  Returns the error, the actions' agreement and the packed
+    kernel's launches in the decode."""
+    from vln_magic_tpu_torch import config as tcfg
+    from vln_magic_tpu_torch.agent.interventions import nested_zdicts
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.ops.attention import packed_attention
+
+    fx = dict(np.load(INTERVENTIONS_FIXTURE))
+    spec = json.loads(str(fx["spec"]))
+    cfg = interventions_config(tcfg, spec)
+    part = lambda pre: {k[len(pre):]: v for k, v in fx.items()
+                        if k.startswith(pre)}
+    world = make_synthetic_world(**spec["world"])
+    items = make_synthetic_instructions(
+        world, rng=np.random.default_rng(spec["seed"]), **spec["items"])
+    nav = Navigator(cfg, world, params=part("params/"), device=device)
+    zd = nested_zdicts(part("zd/"))
+    x = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32
+                             else v).to(nav.device)
+         for k, v in part("nav/").items()}
+    b = x["txt_masks"].shape[0]
+    bz = lambda a: torch.from_numpy(a).to(nav.device).expand(b, *a.shape)
+    with torch.no_grad():
+        outs = nav.model.navigation(
+            *[x[k] for k in NAV_ARGS],
+            front_vp_feats=bz(zd["front_vp_feats"]),
+            front_gmap_feats=bz(zd["front_gmap_feats"]))
+    err = float((outs["fused_logits"].float().cpu()
+                 - torch.from_numpy(fx["fused_logits"])).abs().max())
+    packed_attention.launches = packed_attention.tc_launches = 0
+    _, aux = nav.run_items(items, zdicts={"student": zd})
+    actions = aux["actions"].cpu().numpy()
+    same = bool(np.array_equal(actions, fx["actions"]))
+    if not (err < F32_TOL and same):
+        raise AssertionError(f"golden interventions: fused logits max abs "
+                             f"err {err}, actions equal {same}")
+    return {"max_abs_err": err, "actions_equal": same,
+            "kernel_launches": packed_attention.launches,
+            "tc_launches": packed_attention.tc_launches}
 
 
 def main_config():
@@ -2458,13 +2638,14 @@ def _cli_serve(card, pt, out):
     return launches
 
 
-def phase_cli(card):
+def phase_cli(card, then=None):
     """Phase 13: the port's ``main_nav`` with JAX's flags on a dataset tree
     in the reference's layout (3 scans x 320 viewpoints, no HDF5 file:
     the hash feature store at CLIP width 768): (a) valid with
     ``--detailed_output`` (waves) and (a') without it (streamed), (b)
     train, (c) train with the nDTW expert, (d) serve.  Returns the launches of each
-    run, all 0."""
+    run, all 0, and what ``then(root, out, pt)`` returns: the later phases
+    that run on the same tree (phase 14 (e)), before it is removed."""
     import shutil
     import tempfile
 
@@ -2485,11 +2666,303 @@ def phase_cli(card):
         train = _cli_train(card, root, out)
         ndtw = _cli_train_ndtw(card, root, out)
         serve = _cli_serve(card, pt, out)
+        later = then(root, out, pt) if then else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"cli_valid": valid, "cli_valid_streamed": streamed,
             "cli_train": train, "cli_train_ndtw": ndtw,
-            "cli_serve": serve}
+            "cli_serve": serve}, later
+
+
+# ---- phase 14: interventions, the branch-fused trunk, MC ensembles -------
+
+HEADS = {"do_back_txt": True, "do_back_img": True, "do_front_txt": True,
+         "do_front_img": True, "do_front_his": True}
+HEAD_FLAGS = ["--do_back_txt", "--do_front_txt", "--do_front_img",
+              "--do_front_his"]
+# the packed kernel's launches a wave at T 15 with fuse_branches: 6
+# language, then 2 panorama + 3 layers x (cross + self) at batch 2B a step
+FUSED_LAUNCHES_PER_WAVE = 6 + 15 * (2 + 3 * 2)                      # 126
+ENSEMBLE_N = 3
+WALL_ROUNDS = 4          # interleaved timed rounds of phase 14's four waves
+
+
+def golden_fused_decode(device="cuda"):
+    """``tests/fixtures/golden_params_777.npz`` decoded with
+    ``fuse_branches`` in f32 (the packed kernel's SIMT route on the card):
+    the trajectories must be ``tests/golden_decode.json``'s."""
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.ops.attention import packed_attention
+
+    world = make_synthetic_world(num_scans=2, nodes_per_scan=20, feat_dim=24,
+                                 seed=777)
+    flat = dict(np.load(os.path.join(ROOT, "tests", "fixtures",
+                                     "golden_params_777.npz")))
+    items = make_synthetic_instructions(world, 8, np.random.default_rng(777),
+                                        vocab_size=400, min_path=3,
+                                        max_path=6)
+    cfg = golden_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, fuse_branches=True))
+    nav = Navigator(cfg, world, params=flat, device=device)
+    packed_attention.launches = packed_attention.tc_launches = 0
+    (_, _), preds = nav.evaluate(items, batch_size=8)
+    with open(os.path.join(ROOT, "tests", "golden_decode.json")) as f:
+        want = json.load(f)
+    got = [p["trajectory_idx"] for p in preds]
+    if got != want:
+        raise AssertionError(f"fused-branch golden decode: {got} != {want}")
+    return {"match": True, "kernel_launches": packed_attention.launches,
+            "tc_launches": packed_attention.tc_launches}
+
+
+def fused_branch_kernel_check(batch=8, t_steps=3):
+    """Every ``packed_attention`` call of a bf16 fused-branch decode at a
+    small width (MAGIC-S's heads, 3 layers, T ``t_steps``) held against the
+    plain version (``_checked_packed``), on the tensor-core route."""
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    cfg = main_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, image_feat_size=64,
+                                       fuse_branches=True),
+        env=dataclasses.replace(cfg.env, max_action_len=t_steps,
+                                max_gmap_len=32, max_instr_len=48),
+        train=dataclasses.replace(cfg.train, batch_size=batch))
+    world = make_synthetic_world(num_scans=1, nodes_per_scan=40, feat_dim=64,
+                                 seed=3)
+    items = make_synthetic_instructions(world, batch,
+                                        np.random.default_rng(3),
+                                        vocab_size=500, min_path=3,
+                                        max_path=6)
+    nav = Navigator(cfg, world, seed=1, device="cuda")
+    _, rows = _checked_packed(lambda: nav.evaluate(items))
+    return rows
+
+
+def full_width_zdicts(mcfg, seed=0):
+    """Seeded intervention dictionaries at ``mcfg``'s widths, in the CLI's
+    layout: 81-row backdoor tables (30 direction and 60 landmark words,
+    the rest padding at p 0), 24 frontdoor exemplars a family (the
+    default ``--front_n_clusters``) and a 24-row image backdoor."""
+    from vln_magic_tpu_torch.agent.interventions import (Zdict,
+                                                         build_rollout_zdicts)
+
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    d = mcfg.hidden_size
+    front = mcfg.kd_target_size if mcfg.kd_heads else d
+    back = {k: Zdict(f(n, d), rng.random(n) + 0.1)
+            for k, n in (("direction", 30), ("landmark", 60))}
+    z = build_rollout_zdicts(back, {k: f(24, front)
+                                    for k in ("txt", "vp", "gmap")},
+                             pad_entries=81)
+    img_p = rng.random((24, 1)).astype(np.float32)
+    z.update(z_img_feats=f(24, mcfg.image_feat_size),
+             z_img_pzs=img_p / img_p.sum())
+    return z
+
+
+def _profiled_wave(nav, items, **kw):
+    """One ``evaluate`` under ``torch.profiler``: its device breakdown over
+    the synchronised wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nav.evaluate(items, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"profiled_wall_ms": wall_ms,
+            **device_breakdown(prof, wall_ms, top=5)}
+
+
+def phase_model_options(card, nav, items):
+    """Phase 14 (a)-(d) at the main path's shape (phase 4's navigator,
+    world and 256 items): (a) a ``fuse_branches`` wave, bf16, the same
+    weights: 126 launches, every packed call held to the plain version,
+    device time and idle share beside an unfused wave's, the
+    trajectories' agreement; (b) the golden decodes in f32 (SIMT); (c) a
+    wave with all five intervention heads and seeded dictionaries: 216
+    launches; (d) an ``ensemble_n`` 3 wave: 6 launches.  The walls of the
+    four waves are taken in ``WALL_ROUNDS`` interleaved rounds (the host's
+    pace drifts within a call).  Returns the launches and checks."""
+    from vln_magic_tpu_torch.agent import interventions as I
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+
+    cfg = nav.cfg
+    out = {}
+    with_model = lambda **kw: Navigator(dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **kw)), nav.world, seed=0,
+        device="cuda")
+    fnav, hnav = with_model(fuse_branches=True), with_model(**HEADS)
+    zd = {"student": full_width_zdicts(hnav.cfg.model)}
+    waves = {"unfused": (nav, {}), "fused": (fnav, {}),
+             "interventions": (hnav, {"zdicts": zd}),
+             "ensemble": (nav, {"ensemble_n": ENSEMBLE_N})}
+    want = {"unfused": LAUNCHES_PER_WAVE, "fused": FUSED_LAUNCHES_PER_WAVE,
+            "interventions": LAUNCHES_PER_WAVE, "ensemble": 6}
+    runs = {}
+    for name, (n, kw) in waves.items():
+        n.evaluate(items, **kw)                                 # warm-up
+        avg, preds, wall, launches = timed_evaluate(n, items, **kw)
+        if launches["packed_attention"] != want[name]:
+            raise AssertionError(f"{name} wave launched {launches}, want "
+                                 f"{want[name]}")
+        check_tensor_cores(f"{name} wave", launches)
+        check_decode(nav.world, items, avg, preds)
+        runs[name] = {"avg": avg, "preds": preds, "walls": [wall],
+                      "launches": launches}
+    for r in range(WALL_ROUNDS):
+        for name in (list(waves) if r % 2 else list(waves)[::-1]):
+            n, kw = waves[name]
+            runs[name]["walls"].append(timed_evaluate(n, items, **kw)[2])
+    wall = {k: float(np.median(v["walls"])) for k, v in runs.items()}
+    walls = {k: v["walls"] for k, v in runs.items()}
+    # (a) the branch-fused trunk
+    f, u = runs["fused"], runs["unfused"]
+    same = float(np.mean([a["trajectory"] == b["trajectory"]
+                          for a, b in zip(f["preds"], u["preds"])]))
+    _, rows = _checked_packed(lambda: fnav.evaluate(items))
+    profiles = {"fused": _profiled_wave(fnav, items),
+                "unfused": _profiled_wave(nav, items)}
+    emit({"phase": "fused_branches_wave", "batch": MAIN_BATCH, "T": MAIN_T,
+          "wall_s": wall["fused"], "unfused_wall_s": wall["unfused"],
+          "walls_s": walls["fused"], "unfused_walls_s": walls["unfused"],
+          "semantic_steps_per_s": f["avg"]["semantic_steps"] / wall["fused"],
+          "unfused_semantic_steps_per_s":
+              u["avg"]["semantic_steps"] / wall["unfused"],
+          "kernels": f["launches"], "unfused_kernels": u["launches"],
+          "trajectories_equal_share": same, "kernel_check": rows,
+          "profiles": profiles, "metrics": f["avg"], "card": card})
+    out["fused_wave"] = f["launches"]["packed_attention"]
+    out["fused_max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["fused_exact_limit_used"] = max(r["exact_limit_used"] for r in rows)
+    del fnav
+    # (b) the golden decodes, f32
+    g_int = golden_interventions("cuda")
+    g_fused = golden_fused_decode("cuda")
+    if g_int["tc_launches"] or g_fused["tc_launches"]:
+        raise AssertionError("an f32 golden call took the tensor-core route")
+    emit({"phase": "golden_model_options", "interventions": g_int,
+          "fused_branches": g_fused, "route": "simt", "card": card})
+    out["interventions_golden_f32"] = g_int["kernel_launches"]
+    out["fused_golden_f32"] = g_fused["kernel_launches"]
+    # (c) all five heads; (d) MC dropout: panorama and navigation draw
+    # dropout, so only the deterministic language encoder takes the kernel
+    for name, extra in (("interventions", {
+            "heads": sorted(HEADS), "dict_rows": {
+                k: list(np.shape(v))
+                for k, v in I.flat_zdicts(zd["student"]).items()}}),
+            ("ensemble", {"ensemble_n": ENSEMBLE_N})):
+        run = runs[name]
+        emit({"phase": f"{name}_wave", **extra, "batch": MAIN_BATCH,
+              "T": MAIN_T, "wall_s": wall[name], "walls_s": walls[name],
+              "unfused_wall_s": wall["unfused"],
+              "semantic_steps_per_s":
+                  run["avg"]["semantic_steps"] / wall[name],
+              "kernels": run["launches"], "metrics": run["avg"],
+              "card": card})
+        out[f"{name}_wave"] = run["launches"]["packed_attention"]
+    return out
+
+
+def _with_mode(flags, mode):
+    i = flags.index("--mode")
+    return flags[:i + 1] + [mode] + flags[i + 2:]
+
+
+def phase_cli_interventions(card, root, out, pt):
+    """Phase 14 (e), on phase 13's tree with its MAGIC-S ``.pt``, each run
+    in this process with the kernel counts read over it (0, as in JAX):
+    ``--mode extract_cfp_features``; the intervention ``valid`` (every
+    text, view and map head, the dictionaries rebuilt on the 2,000-item
+    train split: language, CFP and k-means timed apart); ``train`` with
+    ``--z_instr_update --update_iter 1`` for 2 iterations (both roles
+    refreshed each); ``valid --ensemble_n 3``."""
+    from vln_magic_tpu_torch.agent import interventions as I
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+    from vln_magic_tpu_torch.cli.main_nav import build_config, parse_args
+
+    where = ["--root_dir", root, "--output_dir", out]
+    launches = {}
+    # extract_cfp_features
+    argv = _with_mode(R2R_VALID_FLAGS, "extract_cfp_features") + where + [
+        "--resume_file", pt]
+    m = build_config(parse_args(argv)).model
+    width = m.kd_target_size if m.kd_heads else m.hidden_size
+    path, wall, peak, launches["cli_extract_cfp"] = _cli(argv)
+    feats, ids = I.load_cfp_tsv(path, width)
+    if len(ids) != CLI_R2R["train"] or not all(
+            np.isfinite(v).all() and v.shape[1] == width
+            for v in feats.values()):
+        raise AssertionError(f"extract_cfp_features: {len(ids)} rows")
+    emit({"phase": "cli_extract_cfp", "rows": len(ids), "wall_s": wall,
+          "rows_per_s": len(ids) / wall, "peak_bytes": peak,
+          "kernels": launches["cli_extract_cfp"], "card": card})
+    # valid with the interventions, dictionaries rebuilt on the train split
+    argv = R2R_VALID_FLAGS + HEAD_FLAGS + where + [
+        "--resume_file", pt, "--name", "r2r_magic_s_interventions"]
+    with _recorded(I, "update_backdoor_dict") as lang, \
+            _recorded(I, "extract_cfp_features") as cfp, \
+            _recorded(I, "KMeansPicker") as km:
+        results, wall, peak, launches["cli_valid_interventions"] = _cli(argv)
+    _finite_metrics("cli valid interventions", results)
+    if not (len(lang) == len(cfp) == len(km) == 1):
+        raise AssertionError("cli valid interventions: the refresh ran "
+                             f"{len(lang)}, {len(cfp)}, {len(km)} times")
+    emit({"phase": "cli_valid_interventions",
+          "flags": "scripts/run_r2r_valid.sh + " + " ".join(HEAD_FLAGS),
+          "train_items": CLI_R2R["train"], "wall_s": wall,
+          "refresh_s": {"language": lang[0][0], "cfp": cfp[0][0],
+                        "kmeans": km[0][0]},
+          "metrics": results, "peak_bytes": peak,
+          "kernels": launches["cli_valid_interventions"], "card": card})
+    # train with the refresh every iteration
+    argv = R2R_KDL_FLAGS + HEAD_FLAGS + where + [
+        "--z_instr_update", "--update_iter", "1", "--iters", "2",
+        "--log_every", "1", "--for_debug",
+        "--name", "r2r_magic_s_interventions"]
+    with _recorded(Trainer, "train_step") as steps, \
+            _recorded(I, "extract_cfp_features") as cfp:
+        trainer, wall, peak, launches["cli_train_interventions"] = _cli(argv)
+    a = parse_args(argv)
+    tsvs = sorted(f for f in os.listdir(a.ckpt_dir)
+                  if f.startswith("cfp_features_"))
+    want = {f"cfp_features_{r}_{i}.tsv" for r in ("student", "teacher")
+            for i in range(3)}
+    if not want <= set(tsvs) or sorted(trainer.zdicts) != ["student",
+                                                            "teacher"]:
+        raise AssertionError(f"cli train interventions: {tsvs}, "
+                             f"{sorted(trainer.zdicts)}")
+    _finite_metrics("cli train interventions", {"step": steps[-1][2]})
+    emit({"phase": "cli_train_interventions",
+          "flags": "scripts/run_r2r_kdl.sh + " + " ".join(HEAD_FLAGS)
+                   + " --z_instr_update --update_iter 1 --iters 2 "
+                     "--for_debug",
+          "wall_s": wall, "ms_per_iteration": [1e3 * s[0] for s in steps],
+          "cfp_refresh_s": [c[0] for c in cfp], "cfp_tsvs": tsvs,
+          "peak_bytes": peak, "kernels": launches["cli_train_interventions"],
+          "card": card})
+    # MC-dropout ensemble validation
+    argv = [f for f in R2R_VALID_FLAGS if f != "--submit"] + where + [
+        "--resume_file", pt, "--ensemble_n", str(ENSEMBLE_N), "--for_debug",
+        "--name", "r2r_magic_s_ensemble"]
+    results, wall, peak, launches["cli_valid_ensemble"] = _cli(argv)
+    _finite_metrics("cli valid ensemble", results)
+    emit({"phase": "cli_valid_ensemble",
+          "flags": f"scripts/run_r2r_valid.sh without --submit + "
+                   f"--ensemble_n {ENSEMBLE_N} --for_debug",
+          "wall_s": wall, "metrics": results,
+          "peak_bytes": peak, "kernels": launches["cli_valid_ensemble"],
+          "card": card})
+    return launches
 
 
 def main():
@@ -2513,7 +2986,12 @@ def main():
     serve = phase_serving(card)
     pretrain = phase_pretraining(card, nav.world)
     golden_pretrain_launches = phase_golden_pretrain(card)
-    cli = phase_cli(card)
+    options = phase_model_options(card, nav, items)
+    cli, cli14 = phase_cli(card, then=lambda root, out, pt:
+                           phase_cli_interventions(card, root, out, pt))
+    cli.update({k: {"packed_attention": v["packed_attention"],
+                    "fused_attention": v["fused_attention"]}
+                for k, v in cli14.items()})
     cli_note = ("the CLI runs no kernel, as JAX's does not: no flag sets "
                 "ModelConfig.use_pallas_attention")
     by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
@@ -2535,6 +3013,8 @@ def main():
         "pretrain_sap_step_plain_ms": pretrain["sap_step"]["plain_ms"],
         "pretrain_sap_step_bound_ms": pretrain["sap_step"]["bound_ms"],
         "pretrain_sap_step_library_ms": pretrain["sap_step"]["library_ms"],
+        "fused_wave_max_abs_err": options["fused_max_abs_err"],
+        "fused_wave_exact_limit_used": options["fused_exact_limit_used"],
         "launches_by_path": {"wave": wave_launches,
                              "stream": stream_launches,
                              "parity": parity_launches,
@@ -2547,6 +3027,13 @@ def main():
                              "pretrain_validate": pretrain["validate"],
                              "pretrain_golden_f32":
                                  golden_pretrain_launches,
+                             "fused_wave": options["fused_wave"],
+                             "fused_golden_f32": options["fused_golden_f32"],
+                             "interventions_wave":
+                                 options["interventions_wave"],
+                             "interventions_golden_f32":
+                                 options["interventions_golden_f32"],
+                             "ensemble_wave": options["ensemble_wave"],
                              **{k: v["packed_attention"]
                                 for k, v in cli.items()}},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
@@ -2556,6 +3043,11 @@ def main():
                           "pretrain_step": "simt",
                           "pretrain_validate": "simt",
                           "pretrain_golden_f32": "simt",
+                          "fused_wave": "tensor_core",
+                          "fused_golden_f32": "simt",
+                          "interventions_wave": "tensor_core",
+                          "interventions_golden_f32": "simt",
+                          "ensemble_wave": "tensor_core",
                           **{k: "none" for k in cli}},
         "cli_note": cli_note,
         "per": "one wave of the main path (216 launches, bf16, tensor-core "

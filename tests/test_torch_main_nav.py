@@ -484,12 +484,6 @@ def test_sigterm_saves_after_the_step_in_flight(tmp_path, monkeypatch):
 # ---- refusals -------------------------------------------------------------
 
 REFUSED = {
-    "extract_cfp": (["--mode", "extract_cfp_features"], 5),
-    "do_back_txt": (["--mode", "valid", "--do_back_txt"], 5),
-    "do_front_img": (["--mode", "train", "--do_front_img"], 5),
-    "z_instr_update": (["--mode", "train", "--z_instr_update"], 5),
-    "dict_file": (["--mode", "valid", "--s_backdoor_dict_file", "z.tsv"], 5),
-    "ensemble": (["--mode", "valid", "--ensemble_n", "3"], 5),
     "transpeaker": (["--mode", "train", "--use_transpeaker"], 6),
     "speaker": (["--mode", "train", "--speaker", "s.pt"], 6),
     "aug": (["--mode", "train", "--aug", "aug.json"], 2),

@@ -231,10 +231,46 @@ def test_reference_checkpoint_container_round_trip(tmp_path):
 
 @pytest.mark.parametrize("flag", ["do_back_txt", "do_front_img", "do_back_img",
                                   "fuse_branches"])
-def test_unported_configurations_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        DualScaleVLNBert(dataclasses.replace(BASE, **{flag: True}),
-                         device="cpu")
+def test_intervention_and_fused_configurations_match_flax(flag):
+    """Each switch the port once refused builds, loads JAX's params
+    strictly (its heads' names and widths) and gives JAX's forward: the
+    mode that switch changes, fed a dictionary where it reads one."""
+    cfg = dataclasses.replace(BASE, **{flag: True})
+    params = flax_params(cfg, seed=5)
+    tmodel = DualScaleVLNBert(cfg, device="cpu")
+    load_flax_params(tmodel, flatten_params(params))
+    apply = jax.jit(FlaxModel(cfg).apply, static_argnames=("method",))
+    x = _inputs(cfg)
+    rng = np.random.default_rng(6)
+    z = lambda d: rng.standard_normal((B, 5, d)).astype(np.float32)
+    pzs = np.full((B, 5, 1), 0.25, np.float32)
+    pzs[:, -1] = 0.0                                  # a padded row
+    if flag == "do_back_txt":
+        zd = {"direction_features": z(48), "direction_pzs": pzs,
+              "landmark_features": z(48), "landmark_pzs": pzs}
+        want, _ = apply(params, x["txt_ids"], x["txt_masks"],
+                        instr_zdict=zd, method=FlaxModel.language)
+        got, _ = tmodel.language(_torch(x["txt_ids"]), _torch(x["txt_masks"]),
+                                 instr_zdict={k: _torch(v)
+                                              for k, v in zd.items()})
+        _close(want, got, "txt_embeds")
+    elif flag == "do_back_img":
+        keys = ("view_img_fts", "loc_fts", "nav_types", "pano_masks")
+        zi = z(cfg.image_feat_size)
+        want = apply(params, *[x[k] for k in keys], z_img_feats=zi,
+                     z_img_pzs=pzs, method=FlaxModel.panorama)
+        got = tmodel.panorama(*[_torch(x[k]) for k in keys],
+                              z_img_feats=_torch(zi), z_img_pzs=_torch(pzs))
+        _close(want[0], got[0], "pano_embeds")
+        _close(want[1], got[1], "pano_fused")
+    else:
+        kw = {"front_vp_feats": z(48)} if flag == "do_front_img" else {}
+        want = apply(params, *[x[k] for k in NAV_ARGS], **kw,
+                     method=FlaxModel.navigation)
+        got = tmodel.navigation(*[_torch(x[k]) for k in NAV_ARGS],
+                                **{k: _torch(v) for k, v in kw.items()})
+        for k in NAV_KEYS:
+            _close(want[k], got[k], k)
 
 
 def test_default_device_needs_a_gpu():

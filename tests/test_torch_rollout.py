@@ -283,10 +283,10 @@ def test_one_wave_calls_packed_attention_216_times_at_full_depth(monkeypatch):
 
 
 def test_unported_paths_raise(world, golden_params):
-    """Parity mode, streaming and sampled feedback are ported and run
-    (tests/test_torch_parity.py, tests/test_torch_streaming.py and
-    tests/test_torch_train_rollout.py pin them); MC ensembles and the fused
-    teacher+<mode> rollout still raise."""
+    """Parity mode, streaming, sampled feedback and MC ensembles are
+    ported and run (tests/test_torch_parity.py, tests/test_torch_streaming.py,
+    tests/test_torch_train_rollout.py and tests/test_torch_ensemble.py pin
+    them); the fused teacher+<mode> rollout still raises."""
     cfg = golden_cfg(tcfg)
     parity = dataclasses.replace(
         cfg, env=dataclasses.replace(cfg.env, observed_graph_parity=True))
@@ -301,8 +301,8 @@ def test_unported_paths_raise(world, golden_params):
     assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
     with pytest.raises(NotImplementedError, match="fused_split"):
         nav.evaluate(items, feedback="teacher+sample")
-    with pytest.raises(NotImplementedError, match="ensemble"):
-        nav.evaluate(items, ensemble_n=2)
+    (avg, _), preds = nav.evaluate(items, ensemble_n=2)
+    assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
 
 
 def test_default_device_needs_a_gpu(world):

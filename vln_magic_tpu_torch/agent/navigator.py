@@ -73,7 +73,7 @@ class Navigator:
         self.rollout = Rollout(self.tables, cfg.env, self.model)
         self._streams = {}
 
-    def run_items(self, items, feedback="argmax", ensemble_n=1):
+    def run_items(self, items, feedback="argmax", ensemble_n=1, zdicts=None):
         txt_ids, txt_masks = pad_instructions(items, self.cfg.env.max_instr_len)
         state = episodes_from_items(
             self.tables, items, self.cfg.model.hidden_size,
@@ -81,12 +81,17 @@ class Navigator:
         aux = self.rollout.run(
             state, torch.from_numpy(txt_ids).to(self.device),
             torch.from_numpy(txt_masks).to(self.device), feedback,
-            ensemble_n=ensemble_n)
+            ensemble_n=ensemble_n, zdicts=zdicts)
         return state, aux
 
     def evaluate(self, items, feedback="argmax", batch_size=None,
-                 ensemble_n=1, detailed_output=False, stream=None):
+                 ensemble_n=1, detailed_output=False, stream=None,
+                 zdicts=None):
         """Greedy decode + metrics over an item list.
+
+        ``zdicts``: ``{"student": build_rollout_zdicts(...)}``, the
+        intervention dictionaries (``agent/interventions.py``).
+        ``ensemble_n`` > 1: MC-dropout ensembles (``Rollout.run``).
 
         ``detailed_output``: each prediction also gets ``details``, the
         stop probability of every node the episode recorded one for
@@ -111,7 +116,7 @@ class Navigator:
                 raise ValueError("stream=True needs argmax feedback, "
                                  "ensemble_n == 1, no detailed_output and "
                                  "the full-table (non-parity) path")
-            return self._evaluate_stream(items, bs)
+            return self._evaluate_stream(items, bs, zdicts)
         preds = []
         gmap_overflow = semantic_steps = 0
         for i in range(0, len(items), bs):
@@ -120,7 +125,7 @@ class Navigator:
             if n_real < bs:
                 chunk = chunk + [chunk[-1]] * (bs - n_real)
             state, aux = self.run_items(chunk, feedback,
-                                        ensemble_n=ensemble_n)
+                                        ensemble_n=ensemble_n, zdicts=zdicts)
             gmap_overflow += int(aux["gmap_overflow"])
             semantic_steps += int(aux["semantic_steps"])
             host = {k: v.cpu().numpy() for k, v in aux.items()}
@@ -161,8 +166,9 @@ class Navigator:
             self._streams[bs] = StreamEval(self.rollout, self.cfg.env, bs)
         return self._streams[bs]
 
-    def _evaluate_stream(self, items, bs):
-        out = self.stream_eval(bs).run(items, self.cfg.env.max_instr_len)
+    def _evaluate_stream(self, items, bs, zdicts=None):
+        out = self.stream_eval(bs).run(items, self.cfg.env.max_instr_len,
+                                       zdicts=zdicts)
         preds = build_trajectories(self.world, items, out["actions"].T,
                                    out["stop_node"], out["final_cur"])
         avg, per_item = Evaluator(self.world, items).eval_metrics(preds)

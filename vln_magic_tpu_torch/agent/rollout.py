@@ -19,6 +19,12 @@ tensor change, and ``torch.utils.checkpoint`` can recompute a step from an
 input nothing has mutated since.  Draws (dropout, sampled actions, MKRW)
 come from a ``torch.Generator`` made per step from the run's seed.
 
+Both loops take each role's intervention dictionaries (``zdicts``,
+``agent.interventions.build_rollout_zdicts``), broadcast over the batch
+into the language, panorama and navigation modes, and ``ensemble_n`` > 1
+(MC dropout: each mode averaged over n dropout draws, the panorama's before
+the navigation reads it).
+
 Two graph-information modes, as in the reference: the default reads
 gmap distances and paths from the full-graph tables; with
 ``EnvConfig.observed_graph_parity`` they come from the incrementally observed
@@ -54,6 +60,7 @@ from ..utils.device import resolve_device
 from . import distill as D
 from . import geometry as geo
 from . import losses as L
+from .interventions import zdicts_on
 
 BIG = 1_000_000       # obs-order offset separating frontier from visited
 UNOBS = 2_000_000     # obs-order value for unobserved nodes
@@ -858,33 +865,60 @@ class Rollout:
             torch.where(live0, lane_t + 1, state.step_ids[:, trash])
         return live0
 
+    @staticmethod
+    def _apply_mc(mode, ensemble_n, drop, *args, **kwargs):
+        """``mode(*args, **drop, **kwargs)``; with ``ensemble_n`` > 1 the
+        mean of ``ensemble_n`` calls with dropout on, drawn one after
+        another from ``drop["generator"]`` (JAX's ``_apply_mc``, a vmap
+        over split keys; the reference's ensemble rollout,
+        agent_base.py:197-207)."""
+        if ensemble_n <= 1:
+            return mode(*args, **drop, **kwargs)
+        runs = [mode(*args, deterministic=False,
+                     generator=drop["generator"],
+                     need_maps=drop["need_maps"], **kwargs)
+                for _ in range(ensemble_n)]
+        mean = lambda xs: torch.stack(xs).mean(0)
+        if isinstance(runs[0], dict):
+            return {k: mean([r[k] for r in runs]) for k in runs[0]}
+        return tuple(mean(list(xs)) for xs in zip(*runs))
+
     def _model_step(self, model, role, state: EpisodeBatch, pano, gmap_base,
                     vp_base, txt_embeds, txt_masks, txt_kv,
-                    deterministic=True, generator=None, need_maps=False):
+                    deterministic=True, generator=None, need_maps=False,
+                    zd=None, ensemble_n=1):
         """One model's part of a step: panorama forward, ``role``'s node
         embedding update, gmap/vp assembly, navigation forward and [MEM].
         Returns (gmap, outs); ``outs`` also carries the panorama outputs.
         ``need_maps``: the caller reads the attention maps or gradients, so
-        attention stays off the packed kernel (the training rollout)."""
+        attention stays off the packed kernel (the training rollout).
+        ``zd``: the role's dictionaries on the device (``zdicts_on``): the
+        image backdoor's and the viewpoint and map frontdoors'.
+        ``ensemble_n`` > 1: each mode averaged over that many dropout
+        draws (``_apply_mc``)."""
+        zd = zd or {}
         drop = {"deterministic": deterministic, "generator": generator,
                 "need_maps": need_maps}
-        pano_embeds, pano_fused, img_attns = model.panorama(
-            pano["view_img_fts"], pano["loc_fts"], pano["nav_types"],
-            pano["pano_masks"], **drop)
+        pano_embeds, pano_fused, img_attns = self._apply_mc(
+            model.panorama, ensemble_n, drop, pano["view_img_fts"],
+            pano["loc_fts"], pano["nav_types"], pano["pano_masks"],
+            z_img_feats=zd.get("z_img_feats"),
+            z_img_pzs=zd.get("z_img_pzs"))
         # the episode state stays f32 whatever the model's dtype
         self.update_node_embeds(state, pano_embeds.float(),
                                 pano_fused.float(), pano["cand_ids"],
                                 pano["cand_mask"], role)
         gmap = self.assemble_gmap(state, gmap_base, role)
         vp = self.assemble_vp(state, pano_embeds, vp_base, role)
-        outs = model.navigation(
-            txt_embeds, txt_masks, gmap["gmap_img_embeds"],
-            gmap["gmap_step_ids"], gmap["gmap_pos_fts"],
-            gmap["gmap_masks"], gmap["gmap_visited_masks"],
-            gmap["gmap_pair_dists"], vp["vp_img_embeds"],
-            vp["vp_pos_fts"], vp["vp_masks"], vp["vp_nav_masks"],
-            vp["gmap_local_slot"], vp["vp_cand_visited"],
-            txt_cross_kvs=txt_kv, **drop)
+        outs = self._apply_mc(
+            model.navigation, ensemble_n, drop, txt_embeds, txt_masks,
+            gmap["gmap_img_embeds"], gmap["gmap_step_ids"],
+            gmap["gmap_pos_fts"], gmap["gmap_masks"],
+            gmap["gmap_visited_masks"], gmap["gmap_pair_dists"],
+            vp["vp_img_embeds"], vp["vp_pos_fts"], vp["vp_masks"],
+            vp["vp_nav_masks"], vp["gmap_local_slot"], vp["vp_cand_visited"],
+            txt_cross_kvs=txt_kv, front_vp_feats=zd.get("front_vp_feats"),
+            front_gmap_feats=zd.get("front_gmap_feats"))
         setattr(state, ROLE_PREFIX[role] + "mem", outs["cls_embeds"].float())
         outs.update({"pano_embeds": pano_embeds,
                      "pano_fused_embeds": pano_fused, "img_attns": img_attns})
@@ -892,13 +926,15 @@ class Rollout:
 
     def step(self, state: EpisodeBatch, ep: dict, txt_embeds, txt_masks,
              txt_kv, lane_t, feedback: str = "argmax", generator=None,
-             defer_observe: bool = False):
+             defer_observe: bool = False, zd=None, ensemble_n: int = 1):
         """One evaluation step of every lane (state updated in place).
         ``lane_t``: the step index, an int, or a [B] tensor of per-lane
         clocks (streaming, serving; argmax only), wherever it has
         per-episode meaning: the step-id stamp and the forced stop at
         ``max_action_len - 1``.  ``generator``: the draws of ``sample`` and
-        ``expl_sample`` feedback.  ``defer_observe``: see ``transition``.
+        ``expl_sample`` feedback and of the ensemble's dropout.
+        ``defer_observe``: see ``transition``.  ``zd``, ``ensemble_n``: see
+        ``_model_step``.
 
         Returns (chosen target per lane, -1 when not moving; lanes live at
         the top of the step; lanes that ended in it; the action taken, a
@@ -909,7 +945,8 @@ class Rollout:
         vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
         gmap, outs = self._model_step(self.model, "student", state, pano,
                                       gmap_base, vp_base, txt_embeds,
-                                      txt_masks, txt_kv)
+                                      txt_masks, txt_kv, generator=generator,
+                                      zd=zd, ensemble_n=ensemble_n)
         logits = outs[self.policy_key]
         targets = (self.teacher_action(state, gmap, lane_t, True, ep)
                    if feedback == "teacher" else None)
@@ -924,7 +961,7 @@ class Rollout:
             feedback: str = "argmax", ensemble_n: int = 1, *, seed: int = 0,
             train_ml: float | None = None, deterministic: bool = True,
             distill=None, use_teacher_policy: bool = False,
-            remat: bool = False):
+            remat: bool = False, zdicts: dict | None = None):
         """Every episode in ``state`` for ``max_action_len`` steps.
 
         ``feedback``: ``argmax``, ``sample``, ``expl_sample`` or
@@ -940,6 +977,10 @@ class Rollout:
         ``remat`` recomputes each step in the backward pass
         (``torch.utils.checkpoint``) instead of keeping its activations;
         ``use_teacher_policy`` acts on the teacher's logits.
+        ``zdicts``: ``{role: build_rollout_zdicts(...)}`` for ``student``
+        and ``teacher``, broadcast over the batch (JAX's ``zd_for``).
+        ``ensemble_n`` > 1: the student's panorama and navigation modes
+        averaged over that many dropout draws, as JAX's ``_apply_mc``.
 
         Returns aux: ``actions`` [T, B] chosen targets (-1 when not
         moving), ``stop_node``, ``final_cur``, ``semantic_steps`` (episodes
@@ -949,9 +990,6 @@ class Rollout:
         CE ``ml_loss`` and, with ``distill``, ``t_ml_loss`` (the teacher's
         CE), ``kd_losses`` and ``t_kd_losses`` (dicts over
         ``distill.KD_LOSS_NAMES``, zeros without ICoD)."""
-        if ensemble_n != 1:
-            raise NotImplementedError("ensemble_n > 1 is not ported yet "
-                                      "(see ROADMAP.md)")
         if "+" in feedback:
             raise NotImplementedError(
                 f"feedback={feedback!r}: the fused teacher+<mode> rollout "
@@ -962,24 +1000,41 @@ class Rollout:
             raise NotImplementedError(
                 "fusion='local' with feedback other than argmax is not "
                 "ported yet (see ROADMAP.md)")
+        zd = {role: zdicts_on((zdicts or {}).get(role), state.batch_size,
+                              state.cur.device)
+              for role in ("student", "teacher")}
         if train_ml is None and distill is None and deterministic:
-            return self._decode(state, txt_ids, txt_masks, feedback, seed)
+            return self._decode(state, txt_ids, txt_masks, feedback, seed,
+                                zd["student"], ensemble_n)
         return self._run_train(state, txt_ids, txt_masks, feedback, seed,
                                train_ml, deterministic, distill,
-                               use_teacher_policy, remat)
+                               use_teacher_policy, remat, zd, ensemble_n)
+
+    @staticmethod
+    def hoisted_kv(model, txt_embeds):
+        """The instruction K/V hoisted out of the step loop
+        (``text_cross_kv``), or ``None`` where the model projects it in
+        place: ``hoist_text_kv`` off, or ``fuse_branches``, whose trunk
+        reads no hoisted K/V (JAX ``rollout.py:1166``)."""
+        c = model.cfg
+        return (model.text_cross_kv(txt_embeds)
+                if c.hoist_text_kv and not c.fuse_branches else None)
 
     @torch.no_grad()
-    def _decode(self, state, txt_ids, txt_masks, feedback, seed):
-        txt_embeds, _ = self.model.language(txt_ids, txt_masks)
-        txt_kv = self.model.text_cross_kv(txt_embeds) \
-            if self.cfg.hoist_text_kv else None
+    def _decode(self, state, txt_ids, txt_masks, feedback, seed, zd,
+                ensemble_n):
+        txt_embeds, _ = self.model.language(
+            txt_ids, txt_masks, instr_zdict=zd.get("instr_zdict"),
+            front_txt_feats=zd.get("front_txt_feats"))
+        txt_kv = self.hoisted_kv(self.model, txt_embeds)
         ep = self.episode_tables(state)
-        draws = feedback in ("sample", "expl_sample")
+        draws = feedback in ("sample", "expl_sample") or ensemble_n > 1
         actions, live_n = [], []
         for t_step in range(self.env.max_action_len):
             gen = self._generator(seed, t_step) if draws else None
             chosen, live0, _, _ = self.step(state, ep, txt_embeds, txt_masks,
-                                            txt_kv, t_step, feedback, gen)
+                                            txt_kv, t_step, feedback, gen,
+                                            zd=zd, ensemble_n=ensemble_n)
             actions.append(chosen)
             live_n.append(live0.sum())
         return self._aux(state, actions, live_n)
@@ -999,7 +1054,8 @@ class Rollout:
         return aux
 
     def _run_train(self, state, txt_ids, txt_masks, feedback, seed, train_ml,
-                   deterministic, distill, use_teacher_policy, remat):
+                   deterministic, distill, use_teacher_policy, remat, zd,
+                   ensemble_n):
         if self.local_acts:
             raise NotImplementedError("fusion='local' in training is not "
                                       "ported yet (see ROADMAP.md)")
@@ -1024,15 +1080,16 @@ class Rollout:
             icod=kdl and distill.train_teacher,
             mktd=kdl and distill.teacher_sample_hard_mining,
             rw=awt == "RW", s_learned=None, t_learned=None,
-            txt_masks=txt_masks, ep=self.episode_tables(state))
-        c.txt, c.txt_attns = model.language(txt_ids, txt_masks, **drop)
-        c.txt_kv = (model.text_cross_kv(c.txt) if self.cfg.hoist_text_kv
-                    else None)
+            txt_masks=txt_masks, ep=self.episode_tables(state),
+            zd=zd["student"], t_zd=zd["teacher"], ensemble_n=ensemble_n)
+        lang = lambda m, z: m.language(
+            txt_ids, txt_masks, instr_zdict=z.get("instr_zdict"),
+            front_txt_feats=z.get("front_txt_feats"), **drop)
+        c.txt, c.txt_attns = lang(model, c.zd)
+        c.txt_kv = self.hoisted_kv(model, c.txt)
         if kdl:
-            c.t_txt, c.t_txt_attns = teacher.language(txt_ids, txt_masks,
-                                                      **drop)
-            c.t_txt_kv = (teacher.text_cross_kv(c.t_txt)
-                          if teacher.cfg.hoist_text_kv else None)
+            c.t_txt, c.t_txt_attns = lang(teacher, c.t_zd)
+            c.t_txt_kv = self.hoisted_kv(teacher, c.t_txt)
             if awt == "learned_weight":
                 c.s_learned = model.kd_ability_weights()
                 if c.icod:
@@ -1082,13 +1139,15 @@ class Rollout:
         vp_base = self.assemble_vp_base(state, pano, gmap_base, c.ep)
         gmap, outs = self._model_step(self.model, "student", state, pano,
                                       gmap_base, vp_base, c.txt, c.txt_masks,
-                                      c.txt_kv, **drop)
+                                      c.txt_kv, **drop, zd=c.zd,
+                                      ensemble_n=c.ensemble_n)
         outs["txt_embeds"], outs["txt_attns"] = c.txt, c.txt_attns
         logits = outs[self.policy_key]
         if c.kdl:
             _, t_outs = self._model_step(
                 self.teacher_model, "teacher", state, pano, gmap_base,
-                vp_base, c.t_txt, c.txt_masks, c.t_txt_kv, **drop)
+                vp_base, c.t_txt, c.txt_masks, c.t_txt_kv, **drop,
+                zd=c.t_zd)
             t_outs["txt_embeds"], t_outs["txt_attns"] = c.t_txt, c.t_txt_attns
             t_logits = t_outs[self.policy_key]
 

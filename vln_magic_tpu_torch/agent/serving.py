@@ -48,11 +48,14 @@ Formats (torch counterparts of JAX's, which this package cannot read):
   ``last_moved``, ``cur``, ``ended``.  ``state.scan`` is 0, so a blob from
   a fleet slot restores on a server and the other way round.
 - *Bundle*: a directory with ``meta.json`` (``BUNDLE_FORMAT``, the config,
-  the node and candidate budgets, ``quantized``, the torch and CUDA
-  versions and the exporting device) and ``params.npz`` (flat flax names;
-  int8 leaves as ``<name>.__int8__``, ``<name>.scale``, ``<name>.dtype``).
-  It holds no compiled program: the kernels build from the package's
-  sources at first use, which ``warmup`` pays.
+  the node and candidate budgets, ``quantized``, ``zdicts_baked``, the
+  torch and CUDA versions and the exporting device), ``params.npz`` (flat
+  flax names; int8 leaves as ``<name>.__int8__``, ``<name>.scale``,
+  ``<name>.dtype``) and, when the server had intervention dictionaries,
+  ``zdicts.npz`` (the student's, under dotted names:
+  ``instr_zdict.direction_features``, ``front_txt_feats``, ...).  It holds
+  no compiled program: the kernels build from the package's sources at
+  first use, which ``warmup`` pays.
 
 One thread drives a server: a decision points the shared rollout at the
 session's tables.
@@ -74,6 +77,7 @@ from ..models.vlnbert import DualScaleVLNBert
 from ..utils import quantize as Q
 from ..utils.device import resolve_device
 from ..utils.weights import export_flax_params, load_flax_params
+from .interventions import flat_zdicts, nested_zdicts, zdicts_on
 from .rollout import (EpisodeBatch, Rollout, Tables, _observe, init_episodes,
                       relax_observed, select_lanes)
 from .streaming import _map_kv
@@ -165,11 +169,14 @@ class NavServer:
     on.  ``max_nodes`` defaults from ``cfg.env.max_gmap_len`` minus the
     [stop]/[mem] slots, the dataset's own node budget.  ``device`` defaults
     to ``"cuda"`` and raises without a GPU unless ``"cpu"`` is asked for.
+    ``zdicts``: ``{"student": build_rollout_zdicts(...)}``, the
+    intervention dictionaries of every session, copied to the device once.
     """
 
     def __init__(self, cfg: MagicConfig, params=None,
                  max_nodes: int | None = None, max_cands: int = 10,
-                 model: DualScaleVLNBert | None = None, device="cuda"):
+                 model: DualScaleVLNBert | None = None, device="cuda",
+                 zdicts: dict | None = None):
         self.cfg = cfg = dataclasses.replace(
             cfg, env=dataclasses.replace(cfg.env, observed_graph_parity=True))
         self.device = resolve_device(device)
@@ -186,6 +193,8 @@ class NavServer:
                              f"server on {self.device}")
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self._zdicts = zdicts or {}
+        self._zd = zdicts_on(self._zdicts.get("student"), None, self.device)
         if max_nodes is None:
             max_nodes = max(cfg.env.max_gmap_len - 2, 2)
         n = self.n = max_nodes
@@ -278,16 +287,22 @@ class NavServer:
         packed[:, self._off[2]:self._off[3]] = -1
         return self._unpack_tables(packed, bank)
 
+    def _zd_for(self, b: int) -> dict:
+        """The student's dictionaries broadcast over ``b`` lanes: views of
+        the device copy made at construction, so a step copies nothing."""
+        return zdicts_on(self._zd, b, self.device)
+
     @torch.no_grad()
     def _lang(self, ids_buf):
         """The instruction encoding from an uploaded [2, L] int64 buffer
         (ids, mask): (text embeddings [1, L, H], mask [1, L], the hoisted
         cross-layer K/V or None)."""
         ids, mask = ids_buf[0:1], ids_buf[1:2].bool()
-        emb, _ = self.model.language(ids, mask)
-        kv = (self.model.text_cross_kv(emb) if self.cfg.model.hoist_text_kv
-              else None)
-        return emb, mask, kv
+        zd = self._zd_for(1)
+        emb, _ = self.model.language(ids, mask,
+                                     instr_zdict=zd.get("instr_zdict"),
+                                     front_txt_feats=zd.get("front_txt_feats"))
+        return emb, mask, Rollout.hoisted_kv(self.model, emb)
 
     def _decide_core(self, tables, state, t_step, txt):
         """The step: step-id stamp -> assembly -> model -> argmax ->
@@ -299,7 +314,7 @@ class NavServer:
         r.t = tables
         chosen, _, just_ended, action = r.step(
             state, r.episode_tables(state), *txt, t_step,
-            defer_observe=True)
+            defer_observe=True, zd=self._zd_for(state.batch_size))
         return torch.cat([torch.stack([chosen, just_ended.long(), action,
                                        state.traj_len], dim=1),
                           state.traj_nodes], dim=1)
@@ -375,12 +390,17 @@ class NavServer:
             flat = Q.flatten(Q.quantize_params(flat))
         with open(os.path.join(path, "params.npz"), "wb") as f:
             np.savez(f, **flat)
+        zd = flat_zdicts(self._zd)
+        if zd:
+            with open(os.path.join(path, "zdicts.npz"), "wb") as f:
+                np.savez(f, **zd)
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump({
                 "format": BUNDLE_FORMAT,
                 "config": config_to_dict(self.cfg),
                 "max_nodes": self.n, "max_cands": self.c,
                 "quantized": bool(quantize),
+                "zdicts_baked": bool(zd),
                 "torch_version": torch.__version__,
                 "cuda_version": torch.version.cuda,
                 "device": (torch.cuda.get_device_name(self.device)
@@ -390,8 +410,13 @@ class NavServer:
     @classmethod
     def from_bundle(cls, path: str, device="cuda", **kw):
         """A server (or, on ``NavFleet``, a fleet; ``kw`` its other
-        arguments) from an ``export_bundle`` directory.  A JAX bundle
-        (``vln_magic_tpu.serving_bundle.*``) raises ``ValueError``."""
+        arguments) from an ``export_bundle`` directory, with the bundle's
+        intervention dictionaries: it takes no ``zdicts`` of its own, as
+        JAX's does not.  A JAX bundle (``vln_magic_tpu.serving_bundle.*``)
+        raises ``ValueError``."""
+        if "zdicts" in kw:
+            raise TypeError("from_bundle takes no zdicts: a bundle serves "
+                            "the dictionaries it was exported with")
         meta_path = os.path.join(path, "meta.json")
         if not os.path.exists(meta_path):
             raise ValueError(f"not a serving bundle: {path} has no meta.json")
@@ -410,9 +435,15 @@ class NavServer:
             raise ValueError(f"not a serving bundle: {path} has format "
                              f"{fmt!r}, this package reads {BUNDLE_FORMAT}")
         params = Q.load_quantized(os.path.join(path, "params.npz"))
+        zdicts = None
+        if meta.get("zdicts_baked"):
+            with np.load(os.path.join(path, "zdicts.npz"),
+                         allow_pickle=False) as z:
+                zdicts = {"student": nested_zdicts(dict(z))}
         return cls(config_from_dict(meta["config"]), params,
                    max_nodes=int(meta["max_nodes"]),
-                   max_cands=int(meta["max_cands"]), device=device, **kw)
+                   max_cands=int(meta["max_cands"]), device=device,
+                   zdicts=zdicts, **kw)
 
 
 class NavSession:
@@ -778,9 +809,11 @@ class NavFleet(NavServer):
     def __init__(self, cfg: MagicConfig, params=None, slots: int = 8,
                  max_nodes: int | None = None, max_cands: int = 10,
                  model: DualScaleVLNBert | None = None,
-                 max_feature_gb: float = 8.0, device="cuda"):
+                 max_feature_gb: float = 8.0, device="cuda",
+                 zdicts: dict | None = None):
         super().__init__(cfg, params, max_nodes=max_nodes,
-                         max_cands=max_cands, model=model, device=device)
+                         max_cands=max_cands, model=model, device=device,
+                         zdicts=zdicts)
         n, d = self.n, self.d
         feat_gb = slots * (n + 1) * 36 * d * 4 / 1e9
         if feat_gb > max_feature_gb:

@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .interventions import zdicts_on
 from .rollout import (EpisodeBatch, Rollout, _set_at, init_episodes,
                       select_lanes)
 
@@ -101,25 +102,36 @@ class StreamEval:
                 "txt_masks": dev(masks)}
 
     @torch.no_grad()
-    def build_banks(self, prepared):
+    def build_banks(self, prepared, zdicts=None):
         """The prepared bank plus the weight-dependent language forward
         (text embeddings and, when hoisted, the cross-layer instruction
-        K/V), run in batches of the lane width."""
-        model, cfg = self.ro.model, self.ro.cfg
+        K/V; none under ``fuse_branches``), run in batches of the lane
+        width, with the student's ``zdicts`` (``Rollout.run``)."""
+        model = self.ro.model
+        zd = self._zd_for(zdicts)
         embs, kvs = [], []
         q = prepared["scan"].shape[0]
         for i in range(0, q, self.lanes):
             emb, _ = model.language(prepared["txt_ids"][i : i + self.lanes],
-                                    prepared["txt_masks"][i : i + self.lanes])
+                                    prepared["txt_masks"][i : i + self.lanes],
+                                    instr_zdict=zd.get("instr_zdict"),
+                                    front_txt_feats=zd.get("front_txt_feats"))
             embs.append(emb)
-            if cfg.hoist_text_kv:
-                kvs.append(model.text_cross_kv(emb))
+            kv = Rollout.hoisted_kv(model, emb)
+            if kv is not None:
+                kvs.append(kv)
         banks = {k: v for k, v in prepared.items()
                  if k not in ("q_real", "txt_ids")}
         banks["txt_embeds"] = torch.cat(embs)
         txt_kv = (_map_kv(kvs[0], lambda *xs: torch.cat(xs), *kvs[1:])
                   if kvs else None)
         return banks, txt_kv
+
+    def _zd_for(self, zdicts):
+        """The student's dictionaries broadcast over the lanes (every lane
+        reads the same, so a refill needs none)."""
+        return zdicts_on((zdicts or {}).get("student"), self.lanes,
+                         self.device)
 
     # ---- the chunked loop -----------------------------------------------
 
@@ -184,7 +196,7 @@ class StreamEval:
         c["txt_m"] = torch.where(_bcast(refill, c["txt_m"]),
                                  banks["txt_masks"][new_idx], c["txt_m"])
 
-    def _step(self, ep, q, c) -> None:
+    def _step(self, ep, q, c, zd=None) -> None:
         """One step of every lane (``Rollout.step`` on per-lane clocks),
         then the per-episode records, in place."""
         ro, env = self.ro, self.env
@@ -192,7 +204,8 @@ class StreamEval:
         bufs = c["bufs"]
         ep_idx, lane_t = c["ep_idx"], c["lane_t"]
         chosen, live0, just_ended, _ = ro.step(state, ep, c["txt_e"],
-                                               c["txt_m"], c["txt_kv"], lane_t)
+                                               c["txt_m"], c["txt_kv"], lane_t,
+                                               zd=zd)
         # this step's action into the episode's row (dead lanes: trash row)
         row = torch.where(live0, ep_idx, q)
         bufs["actions"][row, lane_t.clamp(max=env.max_action_len - 1)] = chosen
@@ -208,21 +221,24 @@ class StreamEval:
     # ---- the decode -----------------------------------------------------
 
     @torch.no_grad()
-    def run(self, items=None, max_instr_len=None, prepared=None):
+    def run(self, items=None, max_instr_len=None, prepared=None,
+            zdicts=None):
         """Decode every episode in ``items`` through the refilled lanes.
 
         Returns per-episode numpy outputs: ``actions`` [Q, T] (chosen target
         per step, -1 once stopped), ``stop_node`` [Q], ``final_cur`` [Q],
         ``overflow`` [Q] bool, and ``semantic_steps``, ``scan_steps`` (steps
         run) and ``chunks``.  ``prepared=self.prepare(items, max_instr_len)``
-        reuses the item bank across decodes of the same split."""
+        reuses the item bank across decodes of the same split.  ``zdicts``:
+        the student's intervention dictionaries, as ``Rollout.run``."""
         if prepared is None:
             if items is None or max_instr_len is None:
                 raise ValueError("run() needs items+max_instr_len or "
                                  "prepared=")
             prepared = self.prepare(items, max_instr_len)
         q_real = prepared["q_real"]
-        banks, txt_kv_bank = self.build_banks(prepared)
+        banks, txt_kv_bank = self.build_banks(prepared, zdicts)
+        zd = self._zd_for(zdicts)
         q = banks["scan"].shape[0]
         c = self._init_carry(banks, txt_kv_bank)
         max_chunks = self._max_chunks(q)
@@ -232,7 +248,7 @@ class StreamEval:
             # per-episode world-table slices, hoisted per chunk
             ep = self.ro.episode_tables(c["state"])
             for _ in range(self.chunk):
-                self._step(ep, q, c)
+                self._step(ep, q, c, zd)
             chunks += 1
         if not self._drained(c, q):
             raise RuntimeError("streaming eval failed to drain the queue in "

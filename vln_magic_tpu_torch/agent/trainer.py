@@ -312,6 +312,9 @@ class Trainer:
                                      lr=cfg.distill.t_lr)
                       if self.icod else None)
         self.iteration = 0
+        # {role: build_rollout_zdicts(...)}: the intervention dictionaries
+        # of both roles, which compute_grads and train_step default to
+        self.zdicts: dict = {}
         self._seeds = np.random.default_rng(seed)      # a rollout seed a step
         self._data_rng = np.random.default_rng(seed)   # fit()'s data order
 
@@ -328,13 +331,14 @@ class Trainer:
         return state0, to(ids), to(masks)
 
     def _loss_for_rollout(self, state0, txt_ids, txt_masks, feedback,
-                          train_ml, seed):
+                          train_ml, seed, zdicts=None):
         """(student loss, teacher loss, metrics) of one rollout."""
         c = self.cfg
         aux = self.rollout.run(
             state0, txt_ids, txt_masks, feedback, seed=seed,
             train_ml=train_ml, deterministic=False,
-            distill=c.distill if self.kdl else None, remat=c.train.remat)
+            distill=c.distill if self.kdl else None, remat=c.train.remat,
+            zdicts=zdicts)
         bs = state0.batch_size
         ml = aux["ml_loss"] * train_ml / bs
         metrics = {"ml_loss": ml, "gmap_overflow": aux["gmap_overflow"]}
@@ -360,21 +364,26 @@ class Trainer:
         first = [("il", "teacher", t.ml_weight, 0)] if t.ml_weight != 0 else []
         return first + [("dagger", t.dagger_sample, 1.0, 1)]
 
-    def _accumulate_grads(self, items, seed: int) -> dict:
+    def autocast(self):
+        """The forwards' autocast context: bf16 under
+        ``compute_dtype="bfloat16"``, else none."""
+        if self.compute_dtype == torch.bfloat16:
+            return torch.autocast(self.device.type, dtype=torch.bfloat16)
+        return nullcontext()
+
+    def _accumulate_grads(self, items, seed: int, zdicts=None) -> dict:
         """Both rollouts' losses, each backpropagated into ``.grad`` as soon
         as it is built (ICoD: the student's and the teacher's loss in one
         backward); returns the metrics as tensors and the objective, the sum
         of the student's and the teacher's losses."""
         state0, ids, masks = self._batch(items)
-        bf16 = self.compute_dtype == torch.bfloat16
-        ctx = (torch.autocast(self.device.type, dtype=torch.bfloat16)
-               if bf16 else nullcontext())
         metrics = {}
         loss = objective = torch.zeros((), device=self.device)
         for prefix, feedback, weight, sub in self._rollouts():
-            with ctx:
+            with self.autocast():
                 total, t_total, m = self._loss_for_rollout(
-                    state0, ids, masks, feedback, weight, seed * 2 + sub)
+                    state0, ids, masks, feedback, weight, seed * 2 + sub,
+                    zdicts)
             (total + t_total).backward()
             loss = loss + total.detach()
             objective = objective + (total + t_total).detach()
@@ -387,30 +396,34 @@ class Trainer:
         if self.t_opt is not None:      # a frozen teacher takes no gradient
             self.t_opt.zero_grad()
 
-    def compute_grads(self, items, seed: int = 0):
+    def compute_grads(self, items, seed: int = 0, zdicts=None):
         """Gradients of one batch with no optimizer update: ``(objective,
         grads)``, the objective being the student's loss plus, under ICoD,
         the teacher's (what the gradients are of), ``grads`` a dict of ``{"params": ...}`` (and
         ``"t_params"`` under ICoD), each ``{flax name: tensor}`` in the flax
         layout (``utils.weights.flax_named_grads``).  ``seed`` is explicit,
-        so both sides of a comparison draw alike."""
+        so both sides of a comparison draw alike.  ``zdicts`` defaults to
+        ``self.zdicts``."""
         self._zero_grad()
-        _, objective = self._accumulate_grads(items, seed)
+        _, objective = self._accumulate_grads(
+            items, seed, self.zdicts if zdicts is None else zdicts)
         grads = {"params": flax_named_grads(self.model)}
         if self.icod:
             grads["t_params"] = flax_named_grads(self.teacher_model)
         self._zero_grad()
         return objective, grads
 
-    def train_step(self, items) -> dict:
+    def train_step(self, items, zdicts=None) -> dict:
         """One optimizer step on ``items``; returns the metrics as floats
         (one device-to-host copy): per rollout ``il/`` or ``dagger/``
         ``ml_loss``, ``gmap_overflow`` and, under distillation,
         ``kdl_loss`` and (ICoD) ``t_loss``; ``loss`` (the student's) and
-        ``grad_norm`` (the student's, before clipping)."""
+        ``grad_norm`` (the student's, before clipping).  ``zdicts``
+        defaults to ``self.zdicts``."""
         self._zero_grad()
         metrics, _ = self._accumulate_grads(
-            items, int(self._seeds.integers(2 ** 62)))
+            items, int(self._seeds.integers(2 ** 62)),
+            self.zdicts if zdicts is None else zdicts)
         metrics["grad_norm"] = self.opt.step()
         if self.icod:
             self.t_opt.step()

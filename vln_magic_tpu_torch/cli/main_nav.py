@@ -21,6 +21,17 @@ when that tree is absent, and runs one mode:
   SIGTERM saves the train state and exits 143.
 - ``serve``: the JSON-lines robot control protocol over stdin/stdout
   (``agent.serving``).
+- ``extract_cfp_features``: the frontdoor CFP feature TSV of the train
+  split, ``preds/cfp_features_<epoch>.tsv``.
+
+The causal interventions (``--do_back_txt``, ``--do_front_txt|img|his``)
+take their dictionaries from the ``--*_backdoor_dict_file``/
+``--*_frontdoor_dict_file`` TSVs when given, else rebuild them from the
+model on the train split (``agent/interventions.py``); training refreshes
+them at iteration 0, every ``--update_iter`` and on each new best
+(``--z_instr_update`` for the backdoor), writing
+``ckpts/cfp_features_<role>_<it>.tsv``.  ``--ensemble_n`` > 1 validates with
+MC-dropout ensembles.
 
 The weights files are the reference ``.pt`` container, which the JAX
 package reads and writes too (``utils.checkpoint``); optimizer sidecars,
@@ -284,26 +295,12 @@ def parse_args(argv=None):
     return args
 
 
-# flags of the interventions (ROADMAP.md Queue 1 item 5)
-INTERVENTION_FLAGS = ("do_back_txt", "do_back_img", "do_front_img",
-                      "do_front_his", "do_front_txt", "z_instr_update")
-DICT_FILE_FLAGS = tuple(f"{r}{k}_dict_file" for k in ("backdoor", "frontdoor")
-                        for r in ("", "s_", "t_"))
-
-
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for what
     the port does not run yet."""
     train = args.mode == "train"
     mesh = args.dp not in (None, 1) or args.mp != 1 or args.world_size > 1
     checks = [
-        (args.mode == "extract_cfp_features",
-         "--mode extract_cfp_features", 5),
-        (any(getattr(args, f) for f in INTERVENTION_FLAGS),
-         "the interventions (--do_back_*, --do_front_*, --z_instr_update)", 5),
-        (any(getattr(args, f) for f in DICT_FILE_FLAGS),
-         "the intervention dictionary files (--*_dict_file)", 5),
-        (args.ensemble_n > 1, "--ensemble_n > 1 (MC-dropout ensembles)", 5),
         (train and (args.use_transpeaker or bool(args.speaker)),
          "the back-translation speaker (--use_transpeaker, --speaker)", 6),
         (train and (bool(args.aug) or args.env_edit or args.use_aug_env),
@@ -419,6 +416,118 @@ def _score(avg, dataset):
     return avg["spl"] + avg["sr"]
 
 
+def _make_cfp_builder(cfg, world):
+    from ..pretrain.tasks import PathDataBuilder
+
+    return PathDataBuilder(
+        world, max_steps=min(cfg.env.max_action_len + 1, 20),
+        max_gmap=cfg.env.max_gmap_len, max_txt=cfg.env.max_instr_len,
+        angle_feat_size=cfg.model.angle_feat_size,
+        vocab_size=cfg.model.vocab_size, seed=cfg.train.seed)
+
+
+def _word_picker(args):
+    from ..agent.interventions import WordPicker
+
+    return WordPicker(cat_file=args.cat_file if args.cat_file
+                      and os.path.exists(args.cat_file) else None)
+
+
+def _front_flags(mcfg) -> bool:
+    return mcfg.do_front_txt or mcfg.do_front_img or mcfg.do_front_his
+
+
+def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
+                               record=None):
+    """Backdoor z-dict + frontdoor CFP dictionary refresh of each role
+    (the reference refreshes at iter 0, every ``update_iter`` and on each
+    new best, main_nav.py:218-222,439-444,488-494): the backdoor under
+    ``--z_instr_update``, the frontdoor's CFP features written to
+    ``ckpts/cfp_features_<role>_<it>.tsv``, k-means and a pick seeded
+    ``seed + it``.  Sets and returns ``trainer.zdicts``.  Each role's
+    language forward (under the trainer's autocast) and the CFP batch
+    builder are cached on the trainer."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from ..agent.interventions import (KMeansPicker, build_rollout_zdicts,
+                                       extract_cfp_features, save_cfp_tsv,
+                                       update_backdoor_dict)
+    from ..utils.logging import write_to_record_file
+
+    cache = trainer.__dict__.setdefault("_zrefresh_cache", {})
+    roles = [("student", trainer.model, cfg.model)]
+    if trainer.kdl and cfg.teacher_model is not None:
+        roles.append(("teacher", trainer.teacher_model, cfg.teacher_model))
+    zd_all = {}
+    for role, model, mcfg in roles:
+        shim = SimpleNamespace(model=model,
+                               cfg=dataclasses.replace(cfg, model=mcfg))
+        back = front = None
+        if mcfg.do_back_txt and args.z_instr_update:
+            key = f"lang/{role}"
+            if key not in cache:
+                def lang(ids, mask, m=model):
+                    with trainer.autocast():
+                        return m.language(ids, mask)
+                cache[key] = lang
+            back = update_backdoor_dict(shim, items, _word_picker(args),
+                                        lang_fn=cache[key])
+        if _front_flags(mcfg):
+            if "builder" not in cache:
+                cache["builder"] = _make_cfp_builder(cfg, world)
+            feats, ids = extract_cfp_features(shim, items, cache["builder"],
+                                              autocast=trainer.autocast)
+            save_cfp_tsv(os.path.join(
+                args.ckpt_dir, f"cfp_features_{role}_{it}.tsv"), feats, ids)
+            front = KMeansPicker(
+                feats, args.front_n_clusters,
+                seed=cfg.train.seed).random_pick_front_features(
+                np.random.default_rng(cfg.train.seed + it))
+        z = build_rollout_zdicts(back, front, pad_entries=81)
+        if z:
+            zd_all[role] = z
+    trainer.zdicts = zd_all
+    if record and zd_all:
+        write_to_record_file(
+            f"iter {it}: refreshed intervention dicts for "
+            f"{sorted(zd_all)}", record)
+    return zd_all
+
+
+def load_intervention_dict_files(args, cfg):
+    """The dictionaries of the reference's TSV files, for the flags that
+    name existing files (parser.py:236-259; main_nav.py:574-592):
+    ``{role: rollout z-dicts}`` for each role with at least one file."""
+    from ..agent.interventions import (KMeansPicker, build_rollout_zdicts,
+                                       load_backdoor_tsv, load_cfp_tsv)
+
+    out = {}
+    role_files = {
+        "student": (args.s_backdoor_dict_file or args.backdoor_dict_file,
+                    args.s_frontdoor_dict_file or args.frontdoor_dict_file),
+        "teacher": (args.t_backdoor_dict_file or args.backdoor_dict_file,
+                    args.t_frontdoor_dict_file or args.frontdoor_dict_file),
+    }
+    dims = {"student": cfg.model.hidden_size,
+            "teacher": (cfg.teacher_model.hidden_size
+                        if cfg.teacher_model else cfg.model.hidden_size)}
+    for role, (back_f, front_f) in role_files.items():
+        back = front = None
+        if back_f and os.path.exists(back_f):
+            back = load_backdoor_tsv(back_f, dims[role])
+        if front_f and os.path.exists(front_f):
+            feats, _ = load_cfp_tsv(front_f, dims[role])
+            front = KMeansPicker(
+                feats, args.front_n_clusters,
+                seed=cfg.train.seed).random_pick_front_features(
+                np.random.default_rng(cfg.train.seed))
+        z = build_rollout_zdicts(back, front, pad_entries=81)
+        if z:
+            out[role] = z
+    return out
+
+
 def _gmap_overflow_warning(split, n, cfg):
     return (f"WARNING: {split}: {n} episodes overflowed max_gmap_len="
             f"{cfg.env.max_gmap_len} (gmap tokens truncated); "
@@ -504,14 +613,29 @@ def train(args, cfg, world, splits):
     write_to_record_file("training loop armed (SIGTERM-safe)", record)
 
     nav = Navigator(cfg, world, device=args.device)
+    needs_dicts = args.z_instr_update or _front_flags(cfg.model)
+    # dictionaries from files first (--*_backdoor/frontdoor_dict_file); the
+    # iter-0 / periodic refresh overwrites them when it runs
+    file_dicts = load_intervention_dict_files(args, cfg)
+    if file_dicts:
+        trainer.zdicts = file_dicts
+        write_to_record_file(
+            f"loaded intervention dicts from files for "
+            f"{sorted(file_dicts)}", record)
+
+    def refresh(it):
+        refresh_intervention_dicts(args, cfg, trainer, world,
+                                   splits["train"], it, record)
 
     def run_validation(it, save_best=True):
         nav.model.load_state_dict(trainer.model.state_dict())
         new_best = False
+        zd = ({"student": trainer.zdicts["student"]}
+              if "student" in trainer.zdicts else None)
         for split, items in splits.items():
             if not split.startswith("val") or not items:
                 continue
-            (avg, _), _ = nav.evaluate(items)
+            (avg, _), _ = nav.evaluate(items, zdicts=zd)
             logger.log(it, {f"{split}/{k}": v for k, v in avg.items()
                             if isinstance(v, float)})
             write_to_record_file(
@@ -533,6 +657,8 @@ def train(args, cfg, world, splits):
     best = {s: -1.0 for s in splits if s.startswith("val")}
     t0 = time.time()
     it = trainer.iteration
+    if needs_dicts:
+        refresh(it)
     if args.eval_first:
         run_validation(it, save_best=False)
 
@@ -546,7 +672,7 @@ def train(args, cfg, world, splits):
             finally:
                 in_fit[0] = False
             _after_step(None, None)
-            it += interval
+            prev_it, it = it, it + interval
             mean = {k: float(np.mean([h[k] for h in hist if k in h]))
                     for k in hist[-1]}
             logger.log(it, {f"loss/{k}": v for k, v in mean.items()})
@@ -560,7 +686,13 @@ def train(args, cfg, world, splits):
                     f"  WARNING: ~{ovf:.1f} episodes/step overflowed "
                     f"max_gmap_len={cfg.env.max_gmap_len} (gmap tokens "
                     f"truncated); raise --max_gmap_len", record)
-            run_validation(it)
+            # the periodic refresh, then the new-best one
+            # (main_nav.py:439-455, 488-494)
+            if needs_dicts and args.update_iter and \
+                    prev_it // args.update_iter != it // args.update_iter:
+                refresh(it)
+            if run_validation(it) and needs_dicts:
+                refresh(it)
             # latest .pt (+ teacher_ prefix when co-training, + optimizer
             # sidecar under --save_optimizer) and the resumable train state
             trainer.save(os.path.join(args.ckpt_dir, "latest_dict.pt"),
@@ -586,7 +718,33 @@ def valid(args, cfg, world, splits):
         write_to_record_file(f"loaded {args.resume_file} (epoch {epoch})",
                              record)
 
-    def eval_model(tag, navigator):
+    # intervention dictionaries: the reference's TSV files when their flags
+    # name existing paths (main_nav.py:574-592), else rebuilt from the
+    # loaded weights on the train split
+    zdicts = None
+    file_dicts = load_intervention_dict_files(args, cfg)
+    if "student" in file_dicts:
+        zdicts = {"student": file_dicts["student"]}
+    elif (cfg.model.do_back_txt or _front_flags(cfg.model)) \
+            and splits.get("train"):
+        from ..agent.interventions import (KMeansPicker, build_rollout_zdicts,
+                                           extract_cfp_features,
+                                           update_backdoor_dict)
+
+        back = (update_backdoor_dict(nav, splits["train"], _word_picker(args))
+                if cfg.model.do_back_txt else None)
+        front = None
+        if _front_flags(cfg.model):
+            feats, _ = extract_cfp_features(nav, splits["train"],
+                                            _make_cfp_builder(cfg, world))
+            front = KMeansPicker(
+                feats, args.front_n_clusters,
+                seed=cfg.train.seed).random_pick_front_features(
+                np.random.default_rng(cfg.train.seed))
+        z = build_rollout_zdicts(back, front, pad_entries=81)
+        zdicts = {"student": z} if z else None
+
+    def eval_model(tag, navigator, zd=None):
         out = {}
         for split, items in splits.items():
             if split in ("train", "aug") or not items:
@@ -597,7 +755,8 @@ def valid(args, cfg, world, splits):
             # sel_data_idxs + all_gather, env.py:126-134, main_nav.py:606-607)
             my_items = shard_items(items)
             (local_avg, _), preds = navigator.evaluate(
-                my_items, detailed_output=args.detailed_output)
+                my_items, zdicts=zd, detailed_output=args.detailed_output,
+                ensemble_n=args.ensemble_n)
             if local_avg.get("gmap_overflow"):
                 write_to_record_file(_gmap_overflow_warning(
                     split, int(local_avg["gmap_overflow"]), cfg), record)
@@ -621,7 +780,7 @@ def valid(args, cfg, world, splits):
             out[split] = avg
         return out
 
-    results = eval_model("", nav)
+    results = eval_model("", nav, zdicts)
     # the reference also validates the teacher model (main_nav.py:624-667)
     if args.train_kdl and args.teacher_resume_file and cfg.teacher_model:
         import dataclasses
@@ -633,6 +792,30 @@ def valid(args, cfg, world, splits):
         results.update({f"teacher_{k}": v
                         for k, v in eval_model("teacher ", t_nav).items()})
     return results
+
+
+def extract_cfp(args, cfg, world, splits):
+    """``--mode extract_cfp_features``: the frontdoor CFP feature TSV of
+    the train split (reference main_nav.py:669-677, agent.py:1516-1561),
+    which ``KMeansPicker`` turns into the frontdoor dictionaries."""
+    from ..agent.interventions import extract_cfp_features, save_cfp_tsv
+    from ..agent.navigator import Navigator
+    from ..utils.checkpoint import restore_reference_checkpoint
+    from ..utils.logging import write_to_record_file
+
+    record = os.path.join(args.log_dir, "extract.txt")
+    nav = Navigator(cfg, world, device=args.device)
+    epoch = 0
+    if args.resume_file:
+        epoch, _, _ = restore_reference_checkpoint(nav.model, args.resume_file)
+    feats, ids = extract_cfp_features(nav, splits["train"],
+                                      _make_cfp_builder(cfg, world))
+    out = os.path.join(args.pred_dir, f"cfp_features_{epoch}.tsv")
+    save_cfp_tsv(out, feats, ids)
+    write_to_record_file(
+        f"extracted CFP features for {len(ids)} trajectories -> {out}",
+        record)
+    return out
 
 
 def serve(args, cfg):
@@ -811,12 +994,12 @@ def main(argv=None):
     cfg = build_config(args)
     if args.mode == "serve":
         return serve(args, cfg)
-    if args.mode not in ("train", "valid"):
+    modes = {"train": train, "valid": valid,
+             "extract_cfp_features": extract_cfp}
+    if args.mode not in modes:
         raise SystemExit(f"unknown mode {args.mode}")
     world, splits = build_dataset(args, cfg)
-    if args.mode == "train":
-        return train(args, cfg, world, splits)
-    return valid(args, cfg, world, splits)
+    return modes[args.mode](args, cfg, world, splits)
 
 
 if __name__ == "__main__":

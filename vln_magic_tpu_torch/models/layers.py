@@ -76,8 +76,6 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_input, kv_input, bias=None, precomputed_kv=None,
                 deterministic=True, generator=None, need_maps=False):
-        h, hd = self.h, self.hd
-        d = h * hd
         q = self.query(q_input)
         if precomputed_kv is not None:
             # hoisted instruction K/V (text_cross_kv), packed or [B, L, H, hd]
@@ -85,6 +83,19 @@ class MultiHeadAttention(nn.Module):
         else:
             k = self.key(kv_input)
             v = self.value(kv_input)
+        ctx, probs = self.attend(q, k, v, bias, deterministic, generator,
+                                 need_maps)
+        return self.out(ctx), probs
+
+    def attend(self, q, k, v, bias=None, deterministic=True, generator=None,
+               need_maps=False):
+        """Attention of projected Q [B, Lq, H*hd] over K/V ([B, Lk, H*hd]
+        or [B, Lk, H, hd]): (context [B, Lq, H*hd] before ``out``, the
+        head-averaged probabilities [B, Lq, Lk] or zeros on the packed
+        path).  The branch-fused trunk calls it with both branches on the
+        batch axis (``models.vlnbert.BranchedTrunk``)."""
+        h, hd = self.h, self.hd
+        d = h * hd
         b, lq = q.shape[0], q.shape[1]
         lk = k.shape[1]
 
@@ -104,7 +115,7 @@ class MultiHeadAttention(nn.Module):
                                    v.contiguous(), mask_bias, sprel,
                                    num_heads=h)
             probs = q.new_zeros((), dtype=torch.float32).expand(b, lq, lk)
-            return self.out(ctx), probs
+            return ctx, probs
 
         q = q.reshape(b, lq, h, hd)
         k = k.reshape(b, lk, h, hd)
@@ -125,7 +136,7 @@ class MultiHeadAttention(nn.Module):
                 probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         probs_drop = dropout(probs, self.dropout, deterministic, generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs_drop, v).reshape(b, lq, d)
-        return self.out(ctx), probs.mean(dim=1)
+        return ctx, probs.mean(dim=1)
 
 
 class AddNorm(nn.Module):
