@@ -59,13 +59,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    finite metrics, ``grad_norm`` > 0, moved student and teacher
    parameters and no attention-kernel launch (the JAX train step runs no
    Pallas kernel); then one step with ``remat`` (its peak memory), and one
-   under ``torch.profiler`` (device time, idle share, top 10 kernels);
+   under ``torch.profiler`` (device time, idle share, top 10 kernels), the
+   dtype casts counted in the warm-up; the same four steps with
+   autocast's weight cache on, as before the repair (the repair's cost in
+   casts and wall);
+   then the training options on the same trainer, each one warm-up and
+   three timed steps held to the same checks (ms, peak memory):
+   ``grads_dtype="bfloat16"``, ``remat_policy`` ``dots`` and
+   ``dots_all``, ``fuse_rollouts`` (and a profiled fused step: launches,
+   idle share); one ``update_ability_grads`` on the 16 items; and one A2C
+   step of a trainer with the teacher frozen (the student and the critic
+   must move);
 9. golden training step: ``tests/fixtures/golden_train_7.npz`` (a tiny JAX
    student, teacher and critic, the spec of its world, items and
    configuration, and JAX's ``compute_grads`` objective, per-partition
    gradient norms and some gradient leaves) through the port's
    ``compute_grads`` on the card in f32 with TF32 off: the objective to
-   1e-5 relative, the norms and leaves to 1e-4;
+   1e-5 relative, the norms and leaves to 1e-4; then the golden training
+   options, ``tests/fixtures/golden_train_options_13.npz``
+   (``golden_train_options``: the fused DAgger step with
+   ``fusion='local'``, an aug batch and the ``grad`` ability weights, an
+   A2C step, one ``update_ability_grads`` and seven steps of each new
+   optimizer, weights from the seed) at the same tolerances, the
+   optimizers to 1e-5;
 10. serving (``agent/serving.py``): in f32 on the golden world and
     weights, every episode through a ``NavServer`` session and all of them
     through one ``NavFleet``, each equal to the offline parity wave, and a
@@ -1080,19 +1096,22 @@ def _busy_us(intervals):
 def device_breakdown(prof, wall_ms, top=10):
     """Device kernels of a ``torch.profiler`` run: their summed time, the
     device's busy time and idle share over ``wall_ms``, the launch count
-    and the ``top`` kernels by device time."""
+    and the ``top`` kernels by device time.  It reads the profiler's raw
+    records (``kineto_results``): building its per-op event tree instead
+    takes about 2 minutes for a train step's 10^5 kernels."""
     from collections import defaultdict
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [(e.name(), e.start_ns() / 1e3,
+                (e.start_ns() + e.duration_ns()) / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     by_name = defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.end - e.time_range.start
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
-                        for e in kernels]) / 1e3
+    for name, start, end in kernels:
+        by_name[name][0] += 1
+        by_name[name][1] += end - start
+    busy_ms = _busy_us([(start, end) for _, start, end in kernels]) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {"device_kernel_ms": sum(v[1] for v in by_name.values()) / 1e3,
             "device_busy_ms": busy_ms,
@@ -1118,8 +1137,80 @@ def _launches():
             "fused_attention": fused_attention.launches}
 
 
+# the training options phase 8 times beside the default step, each a
+# TrainConfig change on the same trainer
+TRAIN_VARIANTS = {"bf16_grads": {"grads_dtype": "bfloat16"},
+                  "remat_dots": {"remat": True, "remat_policy": "dots"},
+                  "remat_dots_all": {"remat": True,
+                                     "remat_policy": "dots_all"},
+                  "fused": {"fuse_rollouts": True}}
+
+
+class _CastCounter(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the dtype casts (``aten._to_copy``, autocast's among them)
+    that run under it; each launches one kernel on the card."""
+
+    def __init__(self):
+        super().__init__()
+        self.casts = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.casts += func is torch.ops.aten._to_copy.default
+        return func(*args, **(kwargs or {}))
+
+
+def _check_steps(what, metrics, launches):
+    """Finite metrics, ``grad_norm`` > 0 and no attention launch."""
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{what}: a metric is not finite: {metrics}")
+    if not all(m["grad_norm"] > 0 for m in metrics):
+        raise AssertionError(f"{what}: grad_norm 0: {metrics}")
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched attention kernels: "
+                             f"{launches}")
+
+
+def _moved(before, models) -> dict:
+    """The share of each model's parameters that differ from ``before``."""
+    return {k: sum(not torch.equal(a, p) for a, p in zip(
+        before[k], m.parameters())) / len(before[k])
+        for k, m in models.items()}
+
+
+def _timed_steps(step, models, what, steps=TRAIN_STEPS, count_casts=False):
+    """One warm-up and ``steps`` timed train steps: ms each, their median,
+    the peak memory, the metrics, the moved share of each model and the
+    attention launches, checked (``_check_steps``, every model moved);
+    with ``count_casts`` the warm-up's casts (``_CastCounter``, which
+    slows the warm-up)."""
+    counter = _CastCounter() if count_casts else contextlib.nullcontext()
+    with counter:
+        warm_ms, _ = step()
+    before = {k: [p.detach().clone() for p in m.parameters()]
+              for k, m in models.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    timed = [step() for _ in range(steps)]
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = _moved(before, models)
+    del before
+    metrics = [m for _, m in timed]
+    _check_steps(what, metrics, launches)
+    if not all(share > 0 for share in moved.values()):
+        raise AssertionError(f"{what}: a model did not move: {moved}")
+    out = {"warmup_ms": warm_ms, "ms_per_step": [ms for ms, _ in timed],
+           "median_ms_per_step": float(np.median([ms for ms, _ in timed])),
+           "peak_memory_gb": peak_gb, "metrics": metrics,
+           "moved_share": moved, "kernels": launches}
+    if count_casts:
+        out["casts"] = counter.casts
+    return out
+
+
 def phase_training(card, world):
-    """Phase 8: the full-width MAKD + ICoD DAgger train step."""
+    """Phase 8: the full-width MAKD + ICoD DAgger train step, then the
+    training options beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     from vln_magic_tpu_torch.agent.trainer import Trainer
@@ -1135,36 +1226,25 @@ def phase_training(card, world):
         it["instr_encoding"] = rng.integers(4, 1000, 200).astype(np.int32)
     setup_s = time.perf_counter() - t0
 
-    def step():
+    def step(trainer=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = tr.train_step(items)
+        m = (trainer or tr).train_step(items)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, m
 
-    warm_ms, _ = step()
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ms, _ = step()
+        return ms, prof
+
     models = {"student": tr.model, "teacher": tr.teacher_model}
-    before = {k: [p.detach().clone() for p in m.parameters()]
-              for k, m in models.items()}
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    steps = [step() for _ in range(TRAIN_STEPS)]
-    launches = _launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    moved = {k: sum(not torch.equal(a, p) for a, p in zip(before[k],
-                                                           m.parameters()))
-             / len(before[k]) for k, m in models.items()}
-    del before
-    metrics = [m for _, m in steps]
-    if not all(math.isfinite(v) for m in metrics for v in m.values()):
-        raise AssertionError(f"training: a metric is not finite: {metrics}")
-    if not all(m["grad_norm"] > 0 for m in metrics):
-        raise AssertionError(f"training: grad_norm 0: {metrics}")
-    if not all(share > 0 for share in moved.values()):
-        raise AssertionError(f"training: a model did not move: {moved}")
-    if any(launches.values()):
-        raise AssertionError(f"training launched attention kernels: "
-                             f"{launches}")
+    parts_s = {}
+    t0 = time.perf_counter()
+    default = _timed_steps(step, models, "training", count_casts=True)
+    launches = {"default": default["kernels"]}
+    parts_s["default"] = time.perf_counter() - t0
 
     tr.cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, remat=True))
@@ -1175,19 +1255,96 @@ def phase_training(card, world):
     if not all(math.isfinite(v) for v in remat_m.values()):
         raise AssertionError(f"training with remat: {remat_m}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled_ms, _ = step()
-    wall_ms = float(np.median([ms for ms, _ in steps]))
+    t0 = time.perf_counter()
+    profiled_ms, prof = profiled()
+    wall_ms = default["median_ms_per_step"]
     emit({"phase": "training", "batch": TRAIN_BATCH, "T": MAIN_T,
-          "setup_s": setup_s, "warmup_ms": warm_ms,
-          "ms_per_step": [ms for ms, _ in steps],
-          "median_ms_per_step": wall_ms, "metrics": metrics,
-          "peak_memory_gb": peak_gb, "remat_ms": remat_ms,
+          "setup_s": setup_s, **default, "remat_ms": remat_ms,
           "remat_peak_memory_gb": remat_peak_gb, "remat_metrics": remat_m,
-          "moved_share": moved, "kernels": launches, "card": card})
+          "card": card})
     emit({"phase": "training_profile", "profiled_ms": profiled_ms,
           **device_breakdown(prof, wall_ms), "card": card})
+    del prof
+    parts_s["profile"] = time.perf_counter() - t0
+
+    # the repair's cost: the same steps with autocast's weight cache on
+    # (the port before it), where every use of a weight reads one cast
+    t0 = time.perf_counter()
+    tr.autocast = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
+    cached = _timed_steps(step, models, "training, autocast cache on",
+                          count_casts=True)
+    del tr.autocast
+    launches["autocast_cache"] = cached["kernels"]
+    emit({"phase": "training_autocast_cache", **cached,
+          "repaired_median_ms_per_step": wall_ms,
+          "repaired_casts": default["casts"], "card": card})
+    parts_s["autocast_cache"] = time.perf_counter() - t0
+
+    from vln_magic_tpu_torch.agent.rollout import REMAT_SAVED
+
+    variants = {}
+    for name, train in TRAIN_VARIANTS.items():
+        tr.cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, **train))
+        tr.rollout.remat_ops.clear()
+        t0 = time.perf_counter()
+        variants[name] = _timed_steps(step, models, f"training {name}")
+        parts_s[name] = time.perf_counter() - t0
+        launches[name] = variants[name]["kernels"]
+        if tr.rollout.remat_ops:
+            # the product ops the layers reach on this card, a step, and
+            # whether the policy saved them
+            policy = REMAT_SAVED[train["remat_policy"]]
+            variants[name]["remat_products_per_step"] = {
+                str(op): {"n": n / (TRAIN_STEPS + 1), "saved": op in policy}
+                for op, n in tr.rollout.remat_ops.items()
+                if any(k in str(op) for k in ("mm", "matmul", "linear",
+                                              "einsum", "conv", "dot"))}
+        emit({"phase": "training_option", "option": name, "train": train,
+              **variants[name], "card": card})
+    t0 = time.perf_counter()
+    fused_profiled_ms, prof = profiled()
+    tr.cfg = cfg
+    emit({"phase": "training_fused_profile", "profiled_ms": fused_profiled_ms,
+          **device_breakdown(prof, variants["fused"]["median_ms_per_step"]),
+          "card": card})
+    del prof
+    parts_s["fused_profile"] = time.perf_counter() - t0
+
+    # the 'grad' ability weights' refresh on the batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    norms = tr.update_ability_grads(items)
+    torch.cuda.synchronize()
+    ability = {"ms": (time.perf_counter() - t0) * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "ability_grads": norms.tolist(), "kernels": _launches()}
+    launches["ability_grads"] = ability["kernels"]
+    if not (np.all(np.isfinite(norms)) and np.all(norms > 0)) \
+            or any(ability["kernels"].values()):
+        raise AssertionError(f"update_ability_grads: {ability}")
+    emit({"phase": "training_ability_grads", "items": len(items), **ability,
+          "card": card})
+    del tr, models
+    t0 = time.perf_counter()
+
+    # one A2C step: the teacher frozen, so that the critic trains (under
+    # ICoD JAX's step takes the teacher's partition instead)
+    a2c_cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, train_alg="a2c"),
+        distill=dataclasses.replace(cfg.distill, train_teacher=False))
+    a2c = Trainer(a2c_cfg, world, device="cuda")
+    a2c_step = _timed_steps(lambda: step(a2c), {"student": a2c.model,
+                                                "critic": a2c.critic},
+                            "training a2c", steps=1)
+    launches["a2c"] = a2c_step["kernels"]
+    emit({"phase": "training_option", "option": "a2c",
+          "train": {"train_alg": "a2c", "train_teacher": False}, **a2c_step,
+          "card": card})
+    parts_s["a2c"] = time.perf_counter() - t0
+    emit({"phase": "training_parts", "seconds": parts_s, "card": card})
     return launches
 
 
@@ -1237,13 +1394,265 @@ def golden_train_step(device="cuda"):
     return errs
 
 
+# the golden training options (ROADMAP Queue 1 item 2): two JAX
+# compute_grads runs (the fused DAgger step with fusion='local', an aug
+# batch and the 'grad' ability weights; an A2C step, sampled feedback
+# taken as argmax on both sides), one update_ability_grads and seven
+# steps of each new optimizer on a named tree, weights drawn from the
+# seed (seeded_flax_params), so that the fixture holds JAX's results only
+GOLDEN_OPTIONS_SPEC = {
+    "seed": 13,
+    "world": {"num_scans": 1, "nodes_per_scan": 14, "feat_dim": 16,
+              "seed": 9},
+    "items": {"num_items": 4, "vocab_size": 120, "min_path": 2,
+              "max_path": 4},
+    "model": {"vocab_size": 120, "hidden_size": 32, "num_attention_heads": 2,
+              "num_l_layers": 1, "num_pano_layers": 1, "num_x_layers": 1,
+              "image_feat_size": 16, "max_position_embeddings": 64,
+              "kd_heads": True, "kd_target_size": 64, "hidden_dropout": 0.0,
+              "attention_dropout": 0.0},
+    "teacher_model": {"hidden_size": 64, "kd_target_size": 32},
+    "env": {"max_action_len": 4, "max_gmap_len": 16, "max_instr_len": 32},
+    "runs": {
+        "fused": {"model": {"fusion": "local"},
+                  "train": {"batch_size": 4, "train_alg": "dagger",
+                            "ml_weight": 0.2, "dagger_sample": "argmax",
+                            "fuse_rollouts": True},
+                  "distill": {"train_kdl": True, "train_teacher": True,
+                              "teacher_sample_hard_mining": True,
+                              "adaptive_ability_weight": True,
+                              "adaptive_ability_weight_type": "grad"}},
+        "a2c": {"model": {},
+                "train": {"batch_size": 4, "train_alg": "a2c",
+                          "ml_weight": 0.2},
+                "distill": {"train_kdl": True, "train_teacher": False,
+                            "teacher_sample_hard_mining": True,
+                            "adaptive_ability_weight": True,
+                            "adaptive_ability_weight_type":
+                                "learned_weight"}}},
+    # the fused run's ability-gradient norms (the 'grad' weights' input)
+    "ability_grads": [3.0, 1.0, 4.0, 1.5, 2.5],
+    # its aug table: the world's features with the views rolled by one
+    "aug_roll": 1,
+    "optim": {"steps": 7, "lr": 0.01, "grad_clip": 1.0,
+              "weight_decay": 0.01, "grad_std": 0.06,
+              "runs": [["radam", False], ["ralamb", False],
+                       ["rangerlars", False], ["rms", False],
+                       ["radam", True], ["ralamb", True],
+                       ["rangerlars", True], ["rms", True],
+                       ["adamw", True]],
+              "tree": {
+                  "params.lang_encoder.embeddings.word_embeddings.embedding":
+                      [12, 8],
+                  "params.lang_encoder.embeddings.emb_norm.scale": [8],
+                  "params.lang_encoder.layer_0.attention.query.kernel":
+                      [8, 8],
+                  "params.local_encoder.layer_0.ffn.output.kernel": [16, 8],
+                  "params.local_sap_head.dense.bias": [16],
+                  "params.pano_encoder.img_proj.kernel": [16, 8],
+                  "params.global_encoder.layer_0.ffn.output.bias": [8],
+                  "params.kdl_global_weight": []}},
+}
+OPTIONS_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "golden_train_options_13.npz")
+FIX_FLAGS = ("fix_lang_embedding", "fix_local_branch", "fix_pano_embedding")
+
+
+def options_config(module, run, spec=GOLDEN_OPTIONS_SPEC):
+    """The ``run`` configuration of ``spec`` as a ``MagicConfig`` of
+    ``module`` (either package's ``config``)."""
+    r = spec["runs"][run]
+    model = module.ModelConfig(**{**spec["model"], **r["model"]})
+    return module.MagicConfig(
+        model=model,
+        teacher_model=dataclasses.replace(model, **spec["teacher_model"]),
+        env=module.EnvConfig(**spec["env"]),
+        train=module.TrainConfig(**r["train"]),
+        distill=module.DistillConfig(**r["distill"]))
+
+
+def seeded_flax_params(shapes: dict, seed: int) -> dict:
+    """Weights for flax names -> shapes, drawn from ``seed`` in sorted name
+    order: 0.05 N(0, 1), plus 1 for LayerNorm scales.  Both packages draw
+    the same arrays from their own names."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(shapes):
+        x = np.array(rng.standard_normal(shapes[name]), np.float32)
+        x *= 0.05
+        if name.endswith(".scale"):
+            x += 1.0
+        out[name] = x
+    return out
+
+
+def seeded_trainer_weights(trainer, seed: int) -> None:
+    """``seeded_flax_params`` into the port trainer's student (``seed``),
+    teacher (``seed + 1``) and critic (``seed + 7``)."""
+    from vln_magic_tpu_torch.utils.weights import (_flax_names,
+                                                   load_trainer_params)
+
+    def flat(model, s):
+        return seeded_flax_params(
+            {k: tuple(p.t().shape if tr else p.shape)
+             for k, (p, tr) in _flax_names(model).items()}, s)
+
+    load_trainer_params(
+        trainer, flat(trainer.model, seed),
+        None if trainer.teacher_model is None
+        else flat(trainer.teacher_model, seed + 1),
+        flat(trainer.critic, seed + 7))
+
+
+def options_world_items(module, spec=GOLDEN_OPTIONS_SPEC):
+    """The options' world, items and aug table, from either package's
+    ``env`` module."""
+    world = module.make_synthetic_world(**spec["world"])
+    items = module.synthetic.make_synthetic_instructions(
+        world, rng=np.random.default_rng(spec["seed"]), **spec["items"])
+    aug = np.roll(np.asarray(world.tables.features), spec["aug_roll"], axis=2)
+    return world, items, aug
+
+
+class _SampleAsArgmax:
+    """``Rollout.select_action`` of ``rollout_cls`` taking ``sample`` as
+    ``argmax`` while active, so that the A2C rollout draws alike in both
+    packages."""
+
+    def __init__(self, rollout_cls):
+        self.cls, self.orig = rollout_cls, rollout_cls.select_action
+
+    def __enter__(self):
+        orig = self.orig
+
+        def select(ro, logits, feedback, *args, **kwargs):
+            return orig(ro, logits,
+                        "argmax" if feedback == "sample" else feedback,
+                        *args, **kwargs)
+
+        self.cls.select_action = select
+
+    def __exit__(self, *exc):
+        self.cls.select_action = self.orig
+
+
+def options_optimizer_run(kind, fix, spec=GOLDEN_OPTIONS_SPEC):
+    """The port's optimizer ``kind`` (``fix``: every ``fix_*`` flag on)
+    for ``spec["optim"]["steps"]`` steps on the seeded named tree with
+    seeded gradients: the parameters after each step, by name [steps,
+    ...]."""
+    from vln_magic_tpu_torch.agent.trainer import make_optimizer
+    from vln_magic_tpu_torch.config import MagicConfig, TrainConfig
+
+    o = spec["optim"]
+    names = sorted(o["tree"])
+    params = [torch.from_numpy(v) for v in
+              seeded_flax_params(o["tree"], spec["seed"]).values()]
+    cfg = MagicConfig(train=TrainConfig(
+        optim=kind, lr=o["lr"], grad_clip=o["grad_clip"],
+        weight_decay=o["weight_decay"], **{f: fix for f in FIX_FLAGS}))
+    opt = make_optimizer(cfg, params, names=names)
+    rng = np.random.default_rng(spec["seed"] + 1)
+    out = {k: [] for k in names}
+    with torch.no_grad():
+        for _ in range(o["steps"]):
+            for p in params:
+                p.grad = torch.from_numpy(np.asarray(
+                    o["grad_std"] * rng.standard_normal(tuple(p.shape)),
+                    np.float32))
+            opt.step()
+            for k, p in zip(names, params):
+                out[k].append(p.numpy().copy())
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def golden_train_options(device="cuda"):
+    """The port on the golden training options (``OPTIONS_FIXTURE``): the
+    fused run's and the A2C run's ``compute_grads`` (the objective to 1e-5
+    relative, each partition's gradient norm and kept leaf to 1e-4), the
+    ability-gradient norms of one ``update_ability_grads`` (1e-4
+    relative) and each optimizer's seven steps (1e-5 relative, 1e-7
+    absolute).  Returns the errors; raises when one is over its
+    tolerance."""
+    from vln_magic_tpu_torch import config as tcfg
+    from vln_magic_tpu_torch import env as tenv
+    from vln_magic_tpu_torch.agent.rollout import Rollout
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+
+    spec = GOLDEN_OPTIONS_SPEC
+    fx = dict(np.load(OPTIONS_FIXTURE))
+    if json.loads(str(fx["spec"])) != json.loads(json.dumps(spec)):
+        raise AssertionError("golden options: the fixture's spec is not "
+                             "GOLDEN_OPTIONS_SPEC")
+    world, items, aug = options_world_items(tenv)
+    errs, bad = {}, []
+
+    def check(key, got, want, rtol, atol=0.0):
+        scale = float(np.max(np.abs(want))) if np.size(want) else 0.0
+        err = float(np.max(np.abs(np.asarray(got) - want))) if np.size(
+            want) else 0.0
+        errs[key] = err / scale if scale else err
+        if not err <= rtol * scale + atol:
+            bad.append(f"{key}: {err} against {rtol} x {scale}")
+
+    for run in spec["runs"]:
+        tr = Trainer(options_config(tcfg, run), world, device=device,
+                     aug_features=aug if run == "fused" else None)
+        seeded_trainer_weights(tr, spec["seed"])
+        if run == "fused":
+            tr.ability_grads = np.asarray(spec["ability_grads"], np.float32)
+            loss, grads = tr.compute_grads(items, seed=spec["seed"], aug=True)
+        else:
+            with _SampleAsArgmax(Rollout):
+                loss, grads = tr.compute_grads(items, seed=spec["seed"])
+        check(f"{run}/loss", loss.item(), fx[f"{run}/loss"], 1e-5)
+        for part, g in grads.items():
+            norm = math.sqrt(sum(float((x.double() ** 2).sum())
+                                 for x in g.values()))
+            check(f"{run}/grad_norm/{part}", norm,
+                  fx[f"{run}/grad_norm/{part}"], 1e-4)
+            prefix = f"{run}/grad/{part}/"
+            for k in [k for k in fx if k.startswith(prefix)]:
+                check(k, g[k[len(prefix):]].cpu().numpy(), fx[k], 1e-4)
+        if run == "fused":
+            tr.ability_grads = np.zeros(5, np.float32)
+            check("ability_grads", tr.update_ability_grads(items),
+                  fx["ability_grads"], 1e-4)
+    for kind, fix in spec["optim"]["runs"]:
+        for k, v in options_optimizer_run(kind, fix).items():
+            check(f"optim/{kind}/{int(fix)}/{k}", v,
+                  fx[f"optim/{kind}/{int(fix)}/{k}"], 1e-5, 1e-7)
+    if bad:
+        raise AssertionError("golden training options: " + "; ".join(bad))
+    return errs
+
+
 def phase_golden_train(card):
-    """Phase 9: the JAX golden training step in f32, TF32 off."""
+    """Phase 9: the JAX golden training step and the golden training
+    options in f32, TF32 off."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("golden training: TF32 is on")
     errs = golden_train_step()
     emit({"phase": "golden_train", "fixture": os.path.relpath(
         TRAIN_FIXTURE, ROOT), "errors": errs,
           "max_leaf_rel": max(v for k, v in errs.items()
                               if k.startswith("leaf")),
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "card": card})
+    _reset_launches()
+    errs = golden_train_options()
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"golden training options launched attention "
+                             f"kernels: {launches}")
+    worst = lambda prefix: max(v for k, v in errs.items()
+                               if k.startswith(prefix))
+    emit({"phase": "golden_train_options", "fixture": os.path.relpath(
+        OPTIONS_FIXTURE, ROOT), "max_rel": {
+            p: worst(p) for p in ("fused/", "a2c/", "ability_grads",
+                                  "optim/")},
+          "errors": {k: v for k, v in errs.items()
+                     if not k.startswith("optim/")},
+          "kernels": launches,
           "tf32": torch.backends.cuda.matmul.allow_tf32, "card": card})
 
 
@@ -2094,8 +2503,9 @@ def phase_golden_pretrain(card):
 R2R_SIZES = {"train": 2000, "val_seen": 1021, "val_unseen": 2349,
              "test": 4173}
 # what phase 13 writes: R2R's sizes with the cuts that keep the phase near
-# two minutes (each cut is printed)
-CLI_R2R = {"train": 2000, "val_seen": 1021, "val_unseen": 256, "test": 256}
+# four minutes and the script within half its time limit (each cut is
+# printed)
+CLI_R2R = {"train": 2000, "val_seen": 256, "val_unseen": 256, "test": 256}
 CLI_RXR = {"train": 200, "val_unseen": 200}
 RXR_LANGS = ("en-US", "en-IN", "hi-IN", "te-IN")
 CLI_SCANS, CLI_NODES = 3, 320           # the main path's world size
@@ -2441,7 +2851,7 @@ def _cli_train_ndtw(card, root, out):
     card against the same call on the CPU."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vln_magic_tpu_torch.agent.rollout import Rollout, Tables
+    from vln_magic_tpu_torch.agent.rollout import Rollout
     from vln_magic_tpu_torch.agent.trainer import Trainer
 
     argv = RXR_KDL_FLAGS + ["--root_dir", root, "--output_dir", out,
@@ -2486,8 +2896,9 @@ def _cli_train_ndtw(card, root, out):
                            if e.device_type == torch.autograd.DeviceType.CUDA)
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}
     rc = copy.copy(r)
-    rc.t = Tables(**{f.name: getattr(r.t, f.name).cpu()
-                     for f in dataclasses.fields(r.t)})
+    rc.t = dataclasses.replace(r.t, **{
+        f.name: getattr(r.t, f.name).cpu() for f in dataclasses.fields(r.t)
+        if getattr(r.t, f.name) is not None})
     sc = dataclasses.replace(state, **{
         f.name: getattr(state, f.name).cpu()
         for f in dataclasses.fields(state)
@@ -3018,8 +3429,9 @@ def main():
         "launches_by_path": {"wave": wave_launches,
                              "stream": stream_launches,
                              "parity": parity_launches,
-                             "train_step": train_launches[
-                                 "packed_attention"],
+                             **{"train_step" if k == "default"
+                                else f"train_{k}": v["packed_attention"]
+                                for k, v in train_launches.items()},
                              "serve": serve["serve"],
                              "fleet": serve["fleet"],
                              "serve_golden_f32": golden_serve_launches,
@@ -3066,7 +3478,9 @@ def main():
         "route_by_path": {"entry_point": "tensor_core", "f32": "simt",
                           **{k: "none" for k in cli}},
         "launches_by_path": {"entry_point": fused["launches"],
-                             "train_step": train_launches["fused_attention"],
+                             **{"train_step" if k == "default"
+                                else f"train_{k}": v["fused_attention"]
+                                for k, v in train_launches.items()},
                              # phase 11 raises on any fused launch
                              "pretrain_step": 0, "pretrain_validate": 0,
                              **{k: v["fused_attention"]

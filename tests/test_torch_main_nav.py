@@ -486,12 +486,6 @@ def test_sigterm_saves_after_the_step_in_flight(tmp_path, monkeypatch):
 REFUSED = {
     "transpeaker": (["--mode", "train", "--use_transpeaker"], 6),
     "speaker": (["--mode", "train", "--speaker", "s.pt"], 6),
-    "aug": (["--mode", "train", "--aug", "aug.json"], 2),
-    "env_edit": (["--mode", "train", "--env_edit"], 2),
-    "use_aug_env": (["--mode", "train", "--use_aug_env"], 2),
-    "grad_weights": (["--mode", "train", "--train_kdl",
-                      "--kdl_adaptive_ability_weight",
-                      "--kdl_adaptive_ability_weight_type", "grad"], 2),
     "dp": (["--mode", "valid", "--dp", "2"], 7),
     "mp": (["--mode", "train", "--mp", "2"], 7),
     "world_size": (["--mode", "valid", "--world_size", "4"], 7),

@@ -29,7 +29,8 @@ from vln_magic_tpu_torch import config as tcfg
 from vln_magic_tpu_torch.agent import rollout as port_rollout
 from vln_magic_tpu_torch.agent.evaluator import Evaluator
 from vln_magic_tpu_torch.agent.navigator import Navigator
-from vln_magic_tpu_torch.agent.navigator import episodes_from_items
+from vln_magic_tpu_torch.agent.navigator import (episodes_from_items,
+                                                pad_instructions)
 from vln_magic_tpu_torch.env import make_synthetic_world
 from vln_magic_tpu_torch.models import layers as port_layers
 from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
@@ -283,10 +284,11 @@ def test_one_wave_calls_packed_attention_216_times_at_full_depth(monkeypatch):
 
 
 def test_unported_paths_raise(world, golden_params):
-    """Parity mode, streaming, sampled feedback and MC ensembles are
-    ported and run (tests/test_torch_parity.py, tests/test_torch_streaming.py,
-    tests/test_torch_train_rollout.py and tests/test_torch_ensemble.py pin
-    them); the fused teacher+<mode> rollout still raises."""
+    """Parity mode, streaming, sampled feedback, MC ensembles and the fused
+    teacher+<mode> rollout are ported and run (tests/test_torch_parity.py,
+    tests/test_torch_streaming.py, tests/test_torch_train_rollout.py,
+    tests/test_torch_ensemble.py and tests/test_torch_train_options.py pin
+    them); teacher+<mode> without ``fused_split`` raises, as in JAX."""
     cfg = golden_cfg(tcfg)
     parity = dataclasses.replace(
         cfg, env=dataclasses.replace(cfg.env, observed_graph_parity=True))
@@ -299,8 +301,16 @@ def test_unported_paths_raise(world, golden_params):
     assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
     (avg, _), preds = nav.evaluate(items, feedback="sample")
     assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
-    with pytest.raises(NotImplementedError, match="fused_split"):
+    with pytest.raises(ValueError, match="fused_split"):
         nav.evaluate(items, feedback="teacher+sample")
+    ids, masks = pad_instructions(items[:2] * 2, cfg.env.max_instr_len)
+    state2 = episodes_from_items(nav.tables, items[:2] * 2,
+                                 cfg.model.hidden_size)
+    aux = nav.rollout.run(state2, torch.from_numpy(ids),
+                          torch.from_numpy(masks), "teacher+sample",
+                          train_ml=1.0, fused_split=2)
+    assert aux["ml_loss_vec"].shape == (2,)
+    assert torch.isfinite(aux["ml_loss"]) and aux["actions"].shape[1] == 4
     (avg, _), preds = nav.evaluate(items, ensemble_n=2)
     assert len(preds) == len(items) and np.isfinite(avg["nDTW"])
 

@@ -3,8 +3,8 @@ vln_magic_tpu's on the same weights and items: ``compute_grads`` of the
 DAgger step with distillation, ICoD, MKTD and learned ability weights (the
 objective, and every gradient leaf of the student and the teacher to 1e-4
 of the leaf's largest magnitude), one ``sgd`` and one ``adamw`` step, the
-learning-rate schedules against optax's, ``remat``, the options that stay
-unported, and the golden fixture that ``chip_smoke.py`` checks on the card.
+learning-rate schedules against optax's, ``remat``, the entry points that
+stay unported, and the golden fixture that ``chip_smoke.py`` checks on the card.
 
 One JAX trainer and one ``compute_grads`` serve the whole file (module
 fixture).  Its configuration is the golden fixture's (``GOLDEN``): dropout
@@ -351,10 +351,10 @@ def test_fit_runs_and_the_teacher_freezes_without_icod(jax_run, port_world):
 
 def test_fit_history_entries_carry_aug(jax_run, port_world):
     """As JAX's ``fit``, each history entry says whether its batch was an
-    aug batch: 0.0, since aug batches are not ported."""
+    aug batch: with ``aug_times`` 1 they alternate, a train batch first."""
     tr = port_trainer_like(jax_run, port_world)
-    hist = tr.fit(items_for(port_world), 1)
-    assert [m["aug"] for m in hist] == [0.0]
+    hist = tr.fit(items_for(port_world), 2, aug_items=items_for(port_world))
+    assert [m["aug"] for m in hist] == [0.0, 1.0]
 
 
 def test_load_trainer_params_carries_all_three_trees(jax_run, port_world):
@@ -380,35 +380,11 @@ def test_load_trainer_params_carries_all_three_trees(jax_run, port_world):
         load_trainer_params(tr, trees(a, "params"), trees(a, "t_params"))
 
 
-UNPORTED = {
-    "fuse_rollouts": {"train": {"fuse_rollouts": True}},
-    "a2c": {"train": {"train_alg": "a2c"}},
-    "rangerlars": {"train": {"optim": "rangerlars"}},
-    "fix_lang_embedding": {"train": {"fix_lang_embedding": True}},
-    "bf16_grads": {"train": {"grads_dtype": "bfloat16"}},
-    "remat_dots": {"train": {"remat": True, "remat_policy": "dots"}},
-    "local_fusion": {"model": {"fusion": "local"}},
-    "grad_ability_weights": {
-        "distill": {"adaptive_ability_weight_type": "grad"}},
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_training_options_raise(port_world, name):
-    spec = json.loads(json.dumps(GOLDEN))
-    for section, kw in UNPORTED[name].items():
-        spec[section].update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_trainer.Trainer(golden_config(tcfg, spec), port_world,
-                             device="cpu")
-
-
 def test_unported_trainer_entry_points_raise(jax_run, port_world):
     tr = port_trainer_like(jax_run, port_world)
     items = items_for(port_world)
     for call in (lambda: tr.use_mesh(None),
-                 lambda: tr.update_ability_grads(items),
-                 lambda: tr.fit(items, 1, aug_items=items)):
+                 lambda: tr.fit(items, 1, speaker=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

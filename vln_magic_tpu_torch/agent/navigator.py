@@ -34,7 +34,9 @@ def pad_instructions(items, max_len: int, pad_id: int = 1):
 
 def episodes_from_items(tables: Tables, items, hidden_size: int,
                         max_gt_len: int = 24, observed_parity: bool = False,
-                        teacher_size: int | None = None):
+                        teacher_size: int | None = None, aug: bool = False):
+    """The episode state of ``items``; ``aug`` marks every episode as
+    reading the tables' aug feature table (EnvEdit)."""
     b = len(items)
     scan = np.array([it["scan_idx"] for it in items], np.int64)
     start = np.array([it["path_idx"][0] for it in items], np.int64)
@@ -47,7 +49,8 @@ def episodes_from_items(tables: Tables, items, hidden_size: int,
         gt_len[i] = len(p)
     return init_episodes(tables, scan, start, heading, gt_path, gt_len,
                          hidden_size, observed_parity=observed_parity,
-                         teacher_size=teacher_size)
+                         teacher_size=teacher_size,
+                         aug=np.full((b,), True) if aug else None)
 
 
 class Navigator:

@@ -86,9 +86,15 @@ class Tables:
     cand_elevation: torch.Tensor
     cand_mask: torch.Tensor
     features: torch.Tensor
+    # the EnvEdit feature table, in ``features``' layout, that aug-marked
+    # episodes read (JAX ``Tables.aug_features``); None without one
+    aug_features: torch.Tensor | None = None
 
     @classmethod
-    def from_world(cls, t: WorldTables, device="cuda") -> "Tables":
+    def from_world(cls, t: WorldTables, device="cuda",
+                   aug_features=None) -> "Tables":
+        """``t`` on ``device``; ``aug_features``: an [S, N, 36, D] table
+        (``cli.main_nav.build_aug_table``), else None."""
         device = resolve_device(device)
 
         def conv(a):
@@ -101,7 +107,10 @@ class Tables:
             return torch.from_numpy(a).to(device)
 
         return cls(**{f.name: conv(getattr(t, f.name))
-                      for f in dataclasses.fields(cls)})
+                      for f in dataclasses.fields(cls)
+                      if f.name != "aug_features"},
+                   aug_features=(None if aug_features is None
+                                 else conv(aug_features)))
 
     @property
     def num_nodes(self) -> int:
@@ -140,6 +149,9 @@ class EpisodeBatch:
     t_embed_sum: torch.Tensor | None = None   # [B, N+1, DT] f32
     t_embed_cnt: torch.Tensor | None = None   # [B, N+1] f32
     t_mem: torch.Tensor | None = None         # [B, DT] f32
+    # episodes that read the tables' aug features (EnvEdit); None in a
+    # state saved before the field existed
+    aug: torch.Tensor | None = None           # [B] bool
 
     @property
     def batch_size(self) -> int:
@@ -181,12 +193,13 @@ def _role(state: EpisodeBatch, role: str, name: str):
 
 def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
                   hidden_size: int, observed_parity: bool = False,
-                  teacher_size: int | None = None) -> EpisodeBatch:
+                  teacher_size: int | None = None, aug=None) -> EpisodeBatch:
     """Agent at gt_path[0] with the item's heading, elevation 0; the start
     node is visited and it and its candidates are observed.  Inputs may be
     numpy arrays or tensors on the tables' device.  ``teacher_size``: the
     teacher's hidden size, for the teacher's node embeddings and [MEM]
-    (distillation); None for none."""
+    (distillation); None for none.  ``aug``: [B] bool, the episodes that
+    read the aug feature table; None for none of them."""
     dev = tables.dist.device
     i64 = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)
     scan, start = i64(scan_idx), i64(start)
@@ -223,6 +236,8 @@ def init_episodes(tables: Tables, scan_idx, start, heading, gt_path, gt_len,
         state.t_embed_sum = zeros(b, n1, teacher_size)
         state.t_embed_cnt = zeros(b, n1)
         state.t_mem = zeros(b, teacher_size)
+    state.aug = (zeros(b, dtype=torch.bool) if aug is None
+                 else torch.as_tensor(aug, dtype=torch.bool, device=dev))
     # the start node carries step id 1 from the outset and is visited
     _set_at(state.step_ids, (bi, start), 1)
     _set_at(state.visited, (bi, start), True)
@@ -336,6 +351,9 @@ class Rollout:
                            "global": "global_logits",
                            "local": "local_logits"}[self.cfg.fusion]
         self.local_acts = self.cfg.fusion == "local"
+        # the forward ops a selective remat policy was asked about, by op
+        # (``selective_remat``); clear it to count a run
+        self.remat_ops: dict = {}
 
     # ---- step-input assembly -------------------------------------------
 
@@ -347,6 +365,9 @@ class Rollout:
         cand_mask = t.cand_mask[scan, cur]
         cand_view = t.cand_view[scan, cur]
         feats36 = t.features[scan, cur].float()               # [B, 36, D]
+        if t.aug_features is not None and state.aug is not None:
+            feats36 = torch.where(state.aug[:, None, None],
+                                  t.aug_features[scan, cur].float(), feats36)
         cand_feat = _take(feats36, cand_view)
         size = self.cfg.angle_feat_size
         cand_ang = geo.angle_feature(
@@ -547,43 +568,86 @@ class Rollout:
     # ---- supervision and action choice --------------------------------
 
     def teacher_action(self, state: EpisodeBatch, gmap: dict, t_step: int,
-                       imitation: bool, ep: dict):
+                       imitation, ep: dict):
         """The supervision target in the gmap action space (the reference's
         ``_teacher_action``): with ``imitation``, the ground-truth next hop
         at step ``t_step`` (0 past the path's end; ``ignore_id`` when the
         token budget truncated it away); otherwise the DAgger expert, stop
         at the goal or else the unvisited token minimising dist(cur, node)
         + dist(node, goal) (``spl``) or maximising the nDTW of the
-        trajectory extended to it (``ndtw``, ``_ndtw_scores``).  Ended rows
-        get ``ignore_id``."""
-        env = self.env
-        b = state.batch_size
-        bi = torch.arange(b, device=state.cur.device)
-        token_node = gmap["token_node"]
-        if imitation:
-            tt = (state.gt_len - 1).clamp(max=t_step + 1)
-            goal_vp = state.gt_path[bi, tt]
-            eq = (token_node == goal_vp[:, None]) & gmap["token_valid"]
-            idx = 2 + eq.int().argmax(dim=1)
-            a = torch.where(t_step >= state.gt_len - 1, 0,
-                            torch.where(eq.any(dim=1), idx, env.ignore_id))
+        trajectory extended to it (``ndtw``, ``_ndtw_scores``).
+        ``imitation`` is a bool or, in the fused dual rollout, a [B] bool
+        tensor choosing per row.  Ended rows get ``ignore_id``."""
+        imit = lambda: self._imitation_target(state, gmap["token_node"],
+                                              gmap["token_valid"], t_step)
+        if isinstance(imitation, bool):
+            a = imit() if imitation else self._expert_action(state, gmap, ep)
         else:
-            n = self.t.num_nodes
+            a = torch.where(imitation, imit(),
+                            self._expert_action(state, gmap, ep))
+        return torch.where(state.ended, self.env.ignore_id, a)
+
+    def teacher_action_local(self, state: EpisodeBatch, pano: dict,
+                             t_step: int, imitation, ep: dict):
+        """The supervision target in the viewpoint branch's action space
+        (``fusion='local'``: [stop], [mem], the current node's candidates;
+        JAX's ``teacher_action_local``): the ground-truth next hop's
+        candidate slot, or the ``spl`` expert's candidate, minimising
+        dist(cur, c) + dist(c, goal).  ``imitation`` as in
+        ``teacher_action``."""
+        cand_ids, cand_mask = pano["cand_ids"], pano["cand_mask"]
+        bi = torch.arange(state.batch_size, device=cand_ids.device)
+
+        def expert():
             dist = ep["dist_f"]
-            visited_tok = state.visited[:, :n].gather(1, token_node)
-            eligible = gmap["token_valid"] & ~visited_tok
-            if env.expert_policy == "ndtw":
-                score = -self._ndtw_scores(state, gmap, ep)
-            elif env.expert_policy == "spl":
-                score = (dist[bi, state.cur].gather(1, token_node)
-                         + dist[bi[:, None], token_node, state.goal[:, None]])
-            else:
-                raise ValueError(
-                    f"invalid expert_policy {env.expert_policy!r}")
-            cost = torch.where(eligible, score, math.inf)
-            a = torch.where(state.cur == state.goal, 0,
-                            2 + cost.argmin(dim=1))
-        return torch.where(state.ended, env.ignore_id, a)
+            safe = cand_ids.clamp(min=0)
+            cost = torch.where(cand_mask,
+                               dist[bi, state.cur].gather(1, safe)
+                               + dist[bi[:, None], safe, state.goal[:, None]],
+                               math.inf)
+            return torch.where(state.cur == state.goal, 0,
+                               2 + cost.argmin(dim=1))
+
+        imit = lambda: self._imitation_target(state, cand_ids, cand_mask,
+                                              t_step)
+        if isinstance(imitation, bool):
+            a = imit() if imitation else expert()
+        else:
+            a = torch.where(imitation, imit(), expert())
+        return torch.where(state.ended, self.env.ignore_id, a)
+
+    def _imitation_target(self, state: EpisodeBatch, slots, slot_valid,
+                          t_step: int):
+        """The slot (2 + index into ``slots`` [B, K], gmap tokens or
+        candidates) holding the ground-truth next hop at step ``t_step``: 0
+        past the path's end, ``ignore_id`` where no valid slot holds it."""
+        bi = torch.arange(state.batch_size, device=slots.device)
+        tt = (state.gt_len - 1).clamp(max=t_step + 1)
+        goal_vp = state.gt_path[bi, tt]
+        eq = (slots == goal_vp[:, None]) & slot_valid
+        idx = 2 + eq.int().argmax(dim=1)
+        return torch.where(t_step >= state.gt_len - 1, 0,
+                           torch.where(eq.any(dim=1), idx, self.env.ignore_id))
+
+    def _expert_action(self, state: EpisodeBatch, gmap: dict, ep: dict):
+        """The DAgger expert's gmap action (JAX's
+        ``_teacher_action_expert``)."""
+        env = self.env
+        bi = torch.arange(state.batch_size, device=state.cur.device)
+        token_node = gmap["token_node"]
+        n = self.t.num_nodes
+        dist = ep["dist_f"]
+        visited_tok = state.visited[:, :n].gather(1, token_node)
+        eligible = gmap["token_valid"] & ~visited_tok
+        if env.expert_policy == "ndtw":
+            score = -self._ndtw_scores(state, gmap, ep)
+        elif env.expert_policy == "spl":
+            score = (dist[bi, state.cur].gather(1, token_node)
+                     + dist[bi[:, None], token_node, state.goal[:, None]])
+        else:
+            raise ValueError(f"invalid expert_policy {env.expert_policy!r}")
+        cost = torch.where(eligible, score, math.inf)
+        return torch.where(state.cur == state.goal, 0, 2 + cost.argmin(dim=1))
 
     def _ndtw_scores(self, state: EpisodeBatch, gmap: dict, ep: dict,
                      k_ext: int = 16, lp: int = 48):
@@ -665,12 +729,21 @@ class Rollout:
         return torch.exp(-dtw / (3.0 * state.gt_len[:, None]))
 
     def select_action(self, logits, feedback: str, generator, nav_targets,
-                      gmap: dict):
+                      gmap: dict, explore_mask=None, is_tf=None):
         """The action per feedback mode: ``teacher`` takes the target,
         ``argmax`` the best logit, ``sample`` a draw from softmax(logits)
         (the Gumbel-max trick), ``expl_sample`` the best logit or, with
         probability 1 - ``expl_max_ratio``, a uniform draw among the
-        selectable tokens.  Draws come from ``generator``."""
+        selectable slots: ``explore_mask`` [B, A] (``fusion='local'``: the
+        viewpoint branch's navigable slots) or else the unvisited gmap
+        tokens.  ``teacher+<mode>`` (the fused dual rollout): the target
+        on the rows of ``is_tf`` [B], ``<mode>`` on the others.  Draws
+        come from ``generator``."""
+        if "+" in feedback:
+            dagger = self.select_action(logits, feedback.split("+", 1)[1],
+                                        generator, nav_targets, gmap,
+                                        explore_mask)
+            return torch.where(is_tf, nav_targets.clamp(min=0), dagger)
         if feedback == "teacher":
             return nav_targets.clamp(min=0)     # ignore_id rows have ended
         if feedback == "argmax":
@@ -683,7 +756,8 @@ class Rollout:
         if feedback == "expl_sample":
             a = logits.argmax(dim=-1)
             explore = rand(a.shape) > self.env.expl_max_ratio
-            mask = gmap["gmap_masks"] & ~gmap["gmap_visited_masks"]
+            mask = (explore_mask if explore_mask is not None else
+                    gmap["gmap_masks"] & ~gmap["gmap_visited_masks"])
             rand_a = torch.where(mask, rand(mask.shape), -1.0).argmax(dim=-1)
             return torch.where(explore, rand_a, a)
         raise ValueError(f"invalid feedback {feedback!r}")
@@ -693,11 +767,13 @@ class Rollout:
     def transition(self, state: EpisodeBatch, gmap: dict, action, stop_prob,
                    t_step, pano: dict, ep: dict,
                    local_actions: bool = False, feedback: str = "argmax",
-                   defer_observe: bool = False):
+                   defer_observe: bool = False, is_tf=None):
         """Record the stop probability, end episodes that stop, run out of
         frontier or of steps, and jump the rest to their target, facing
         along the last edge walked.  An episode stops on action 0 and, with
-        ``teacher`` or ``sample`` feedback, also at its goal.  ``t_step``
+        ``teacher`` or ``sample`` feedback, also at its goal; under
+        ``teacher+<mode>`` the rows of ``is_tf`` [B] follow ``teacher``'s
+        rule and the others ``<mode>``'s.  ``t_step``
         is the step index, an int or a [B] tensor of per-lane clocks.
         ``defer_observe`` skips the arrival node's registration (the
         observed-graph relax and ``_observe``): online serving
@@ -716,7 +792,10 @@ class Rollout:
             live, stop_prob, state.stop_scores[bi, cur_t])
 
         wants_stop = action == 0
-        if feedback in ("teacher", "sample"):
+        if "+" in feedback:
+            goal_stop = is_tf | (feedback.split("+", 1)[1] == "sample")
+            wants_stop = wants_stop | (goal_stop & (state.cur == state.goal))
+        elif feedback in ("teacher", "sample"):
             wants_stop = wants_stop | (state.cur == state.goal)
         just_ended = live & (wants_stop | gmap["no_vp_left"]
                              | (t_step == self.env.max_action_len - 1))
@@ -948,10 +1027,10 @@ class Rollout:
                                       txt_masks, txt_kv, generator=generator,
                                       zd=zd, ensemble_n=ensemble_n)
         logits = outs[self.policy_key]
-        targets = (self.teacher_action(state, gmap, lane_t, True, ep)
+        targets = (self._targets(state, gmap, pano, lane_t, True, ep)
                    if feedback == "teacher" else None)
         action = self.select_action(logits, feedback, generator, targets,
-                                    gmap)
+                                    gmap, self._explore_mask(vp_base))
         stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
         chosen = self.transition(state, gmap, action, stop_prob, lane_t, pano,
                                  ep, self.local_acts, feedback, defer_observe)
@@ -961,7 +1040,9 @@ class Rollout:
             feedback: str = "argmax", ensemble_n: int = 1, *, seed: int = 0,
             train_ml: float | None = None, deterministic: bool = True,
             distill=None, use_teacher_policy: bool = False,
-            remat: bool = False, zdicts: dict | None = None):
+            remat=False, zdicts: dict | None = None, ability_grads=None,
+            train_rl: bool = False, critic=None, gamma: float = 0.9,
+            fused_split: int | None = None):
         """Every episode in ``state`` for ``max_action_len`` steps.
 
         ``feedback``: ``argmax``, ``sample``, ``expl_sample`` or
@@ -971,16 +1052,31 @@ class Rollout:
         ``teacher_action``, imitation under ``teacher`` feedback, else the
         DAgger expert), ``distill`` (a ``DistillConfig``: MAKD losses
         against the teacher model, the teacher's own CE, and with
-        ``train_teacher`` the reverse ICoD losses) or
-        ``deterministic=False`` (dropout on), it is a training rollout
-        that records autograd's graph and leaves ``state`` as it was;
-        ``remat`` recomputes each step in the backward pass
-        (``torch.utils.checkpoint``) instead of keeping its activations;
+        ``train_teacher`` the reverse ICoD losses), ``train_rl``,
+        ``fused_split`` or ``deterministic=False`` (dropout on), it is a
+        training rollout that records autograd's graph and leaves
+        ``state`` as it was.  ``remat``: True or ``"full"`` recomputes each
+        step in the backward pass (``torch.utils.checkpoint``) instead of
+        keeping its activations; ``"dots"`` or ``"dots_all"`` keep the
+        products that ``selective_remat`` names and recompute the rest.
         ``use_teacher_policy`` acts on the teacher's logits.
         ``zdicts``: ``{role: build_rollout_zdicts(...)}`` for ``student``
         and ``teacher``, broadcast over the batch (JAX's ``zd_for``).
         ``ensemble_n`` > 1: the student's panorama and navigation modes
         averaged over that many dropout draws, as JAX's ``_apply_mc``.
+        ``ability_grads``: the five ability-gradient magnitudes
+        (``Trainer.update_ability_grads``) that the ``grad`` ability
+        weights read (``losses.grad_softmax_weights``).
+        ``train_rl`` (A2C): each step records the taken action's log-prob
+        under the policy, its entropy, ``critic``'s value of [MEM] and the
+        reward (the progress toward the goal, plus 2 or -2 at the end by
+        ``error_margin``); the returns, discounted by ``gamma``, give
+        ``rl_loss`` (policy and value terms) and ``rl_entropy``.
+        ``fused_split`` (the fused dual rollout, ``teacher+<mode>``
+        feedback): rows [0, fused_split) are teacher-forced and the others
+        follow ``<mode>``, and every loss stays within its half (MKTD
+        normalisation, MKRW draws, reductions, the all-ended gate), so the
+        halves equal two separate rollouts.
 
         Returns aux: ``actions`` [T, B] chosen targets (-1 when not
         moving), ``stop_node``, ``final_cur``, ``semantic_steps`` (episodes
@@ -989,26 +1085,31 @@ class Rollout:
         with the backtrack appended; a training rollout adds the summed
         CE ``ml_loss`` and, with ``distill``, ``t_ml_loss`` (the teacher's
         CE), ``kd_losses`` and ``t_kd_losses`` (dicts over
-        ``distill.KD_LOSS_NAMES``, zeros without ICoD)."""
-        if "+" in feedback:
-            raise NotImplementedError(
-                f"feedback={feedback!r}: the fused teacher+<mode> rollout "
-                "(fused_split) is not ported yet (see ROADMAP.md)")
-        if feedback not in ("argmax", "sample", "expl_sample", "teacher"):
+        ``distill.KD_LOSS_NAMES``, zeros without ICoD); ``fused_split``
+        adds each half's: ``ml_loss_vec`` and ``t_ml_loss_vec`` [2],
+        ``kd_losses_tf``/``_dg``, ``t_kd_losses_tf``/``_dg`` and
+        ``gmap_overflow_tf``/``_dg``."""
+        fused = fused_split is not None
+        if fused and "+" not in feedback:
+            raise ValueError("fused_split requires feedback='teacher+<mode>'")
+        if "+" in feedback and not fused:
+            raise ValueError(f"feedback={feedback!r} is the fused dual "
+                             "rollout: it needs fused_split")
+        head, _, mode = feedback.rpartition("+")
+        if head not in ("", "teacher") or mode not in (
+                "argmax", "sample", "expl_sample", "teacher"):
             raise ValueError(f"invalid feedback {feedback!r}")
-        if feedback != "argmax" and self.local_acts:
-            raise NotImplementedError(
-                "fusion='local' with feedback other than argmax is not "
-                "ported yet (see ROADMAP.md)")
         zd = {role: zdicts_on((zdicts or {}).get(role), state.batch_size,
                               state.cur.device)
               for role in ("student", "teacher")}
-        if train_ml is None and distill is None and deterministic:
+        if (train_ml is None and distill is None and deterministic
+                and not train_rl and not fused):
             return self._decode(state, txt_ids, txt_masks, feedback, seed,
                                 zd["student"], ensemble_n)
-        return self._run_train(state, txt_ids, txt_masks, feedback, seed,
-                               train_ml, deterministic, distill,
-                               use_teacher_policy, remat, zd, ensemble_n)
+        return self._run_train(
+            state, txt_ids, txt_masks, feedback, seed, train_ml,
+            deterministic, distill, use_teacher_policy, remat, zd,
+            ensemble_n, ability_grads, train_rl, critic, gamma, fused_split)
 
     @staticmethod
     def hoisted_kv(model, txt_embeds):
@@ -1055,21 +1156,19 @@ class Rollout:
 
     def _run_train(self, state, txt_ids, txt_masks, feedback, seed, train_ml,
                    deterministic, distill, use_teacher_policy, remat, zd,
-                   ensemble_n):
-        if self.local_acts:
-            raise NotImplementedError("fusion='local' in training is not "
-                                      "ported yet (see ROADMAP.md)")
+                   ensemble_n, ability_grads, train_rl, critic, gamma,
+                   fused_split):
         model, teacher = self.model, self.teacher_model
         kdl = distill is not None and teacher is not None
         awt = (distill.adaptive_ability_weight_type
                if kdl and distill.adaptive_ability_weight else None)
-        if awt not in (None, "RW", "learned_weight"):
-            raise NotImplementedError(
-                f"adaptive_ability_weight_type={awt!r} is not ported to "
-                "vln_magic_tpu_torch yet (see ROADMAP.md)")
         if kdl and state.t_mem is None:
             raise ValueError("distillation needs the teacher's episode "
                              "state: build it with teacher_size")
+        if train_rl and critic is None:
+            raise ValueError("train_rl needs the critic")
+        dev = state.cur.device
+        fused = fused_split is not None
         # the training forwards read the attention maps (MAKD) and the
         # gradients, which the forward-only packed kernel does not give
         drop = {"deterministic": deterministic,
@@ -1079,9 +1178,12 @@ class Rollout:
             kdl=kdl, distill=distill, use_teacher_policy=use_teacher_policy,
             icod=kdl and distill.train_teacher,
             mktd=kdl and distill.teacher_sample_hard_mining,
-            rw=awt == "RW", s_learned=None, t_learned=None,
+            rw=awt == "RW", ab_static=None, s_learned=None, t_learned=None,
             txt_masks=txt_masks, ep=self.episode_tables(state),
-            zd=zd["student"], t_zd=zd["teacher"], ensemble_n=ensemble_n)
+            zd=zd["student"], t_zd=zd["teacher"], ensemble_n=ensemble_n,
+            split=fused_split, train_rl=train_rl, critic=critic,
+            is_tf=(torch.arange(state.batch_size, device=dev) < fused_split
+                   if fused else None))
         lang = lambda m, z: m.language(
             txt_ids, txt_masks, instr_zdict=z.get("instr_zdict"),
             front_txt_feats=z.get("front_txt_feats"), **drop)
@@ -1094,40 +1196,75 @@ class Rollout:
                 c.s_learned = model.kd_ability_weights()
                 if c.icod:
                     c.t_learned = teacher.kd_ability_weights()
+            elif awt == "grad" and ability_grads is not None:
+                c.ab_static = L.grad_softmax_weights(
+                    torch.as_tensor(np.asarray(ability_grads, np.float32),
+                                    device=dev), distill.rw_temp)
 
-        dev = state.cur.device
-        ml = t_ml = torch.zeros((), device=dev)
-        kd, t_kd = D.zero_kd_losses(dev), D.zero_kd_losses(dev)
-        actions, live_n = [], []
+        halves = ("tf", "dg") if fused else (None,)
+        ml = t_ml = torch.zeros(2 if fused else (), device=dev)
+        kd = {h: D.zero_kd_losses(dev) for h in halves}
+        t_kd = {h: D.zero_kd_losses(dev) for h in halves}
+        step = self._train_step
+        if remat:
+            # the step draws from its own generator only, so the default
+            # generators' states need no saving
+            kw = {"use_reentrant": False, "preserve_rng_state": False}
+            if remat not in (True, "full"):
+                kw["context_fn"] = selective_remat(remat, self.remat_ops)
+            step = lambda *args: checkpoint(self._train_step, *args, **kw)
+        recs = []
         for t_step in range(self.env.max_action_len):
-            if remat:
-                # the step draws from its own generator only, so the
-                # default generators' states need no saving
-                out = checkpoint(self._train_step, state, t_step, seed, c,
-                                 use_reentrant=False,
-                                 preserve_rng_state=False)
-            else:
-                out = self._train_step(state, t_step, seed, c)
-            state, chosen, live0, step_ml, step_t_ml, step_kd, step_t_kd = out
-            ml, t_ml = ml + step_ml, t_ml + step_t_ml
-            if step_kd is not None:
-                kd = D.add_losses(kd, step_kd)
-            if step_t_kd is not None:
-                t_kd = D.add_losses(t_kd, step_t_kd)
-            actions.append(chosen)
-            live_n.append(live0.sum())
-        aux = self._aux(state, actions, live_n)
-        aux.update({"ml_loss": ml, "t_ml_loss": t_ml, "kd_losses": kd,
-                    "t_kd_losses": t_kd})
+            state, rec = step(state, t_step, seed, c)
+            ml, t_ml = ml + rec["ml"], t_ml + rec["t_ml"]
+            for h in halves:
+                if rec["kd"] is not None:
+                    kd[h] = D.add_losses(kd[h], rec["kd"][h])
+                if rec["t_kd"] is not None:
+                    t_kd[h] = D.add_losses(t_kd[h], rec["t_kd"][h])
+            recs.append(rec)
+        aux = self._aux(state, [r["chosen"] for r in recs],
+                        [r["live0"].sum() for r in recs])
+        both = lambda acc: (D.add_losses(acc["tf"], acc["dg"]) if fused
+                            else acc[None])
+        aux.update({"ml_loss": ml.sum(), "t_ml_loss": t_ml.sum(),
+                    "kd_losses": both(kd), "t_kd_losses": both(t_kd)})
+        if fused:
+            over = state.obs_count > self.env.max_gmap_len - 2
+            aux.update({
+                "ml_loss_vec": ml, "t_ml_loss_vec": t_ml,
+                "kd_losses_tf": kd["tf"], "kd_losses_dg": kd["dg"],
+                "t_kd_losses_tf": t_kd["tf"], "t_kd_losses_dg": t_kd["dg"],
+                "gmap_overflow_tf": over[:fused_split].sum(),
+                "gmap_overflow_dg": over[fused_split:].sum()})
+        if train_rl:
+            aux.update(_a2c_losses(recs, gamma))
         return aux
+
+    def _targets(self, state, gmap, pano, t_step, imitation, ep):
+        """The supervision target in the policy's action space."""
+        if self.local_acts:
+            return self.teacher_action_local(state, pano, t_step, imitation,
+                                             ep)
+        return self.teacher_action(state, gmap, t_step, imitation, ep)
+
+    def _explore_mask(self, vp_base):
+        """``expl_sample``'s random-action support: the viewpoint branch's
+        navigable slots under ``fusion='local'`` (JAX passes
+        ``vp_nav_masks``), else the default (unvisited gmap tokens)."""
+        return vp_base["vp_nav_masks"] if self.local_acts else None
 
     def _train_step(self, state: EpisodeBatch, t_step: int, seed: int, c):
         """One training step on a copy of ``state``: both models' forwards
         on the shared token structure, the step's CE, the teacher's CE into
         MKTD weights, one MKRW draw, the MAKD losses (gated on any episode
         being live, as the reference leaves its loop once all have ended),
-        the action and the transition.  Returns (state, chosen, live0, CE,
-        teacher CE, t2s KD dict or None, s2t KD dict or None)."""
+        each per half in the fused dual rollout, the action, the A2C
+        records and the transition.  Returns (state, record): ``chosen``,
+        ``live0``, ``ml`` and ``t_ml`` (the CE sums, [2] per half when
+        fused), ``kd`` and ``t_kd`` (``{half: KD dict}``, half ``None``
+        unless fused, or None), and under ``train_rl`` ``logp``,
+        ``entropy``, ``value``, ``live`` and ``reward`` [B]."""
         state = state.copy_for_step()
         gen = self._generator(seed, t_step)
         drop = {"deterministic": c.drop_off, "generator": gen,
@@ -1151,44 +1288,158 @@ class Rollout:
             t_outs["txt_embeds"], t_outs["txt_attns"] = c.t_txt, c.t_txt_attns
             t_logits = t_outs[self.policy_key]
 
-        ml = t_ml = torch.zeros((), device=logits.device)
-        targets = kd = t_kd = None
-        if c.train_ml is not None or c.feedback == "teacher":
-            targets = self.teacher_action(state, gmap, t_step,
-                                          c.feedback == "teacher", c.ep)
+        split = c.split
+        # the halves' rows (None: the whole batch) and per-half sums
+        rows = ({"tf": slice(0, split), "dg": slice(split, None)}
+                if split is not None else {None: None})
+        sums = (lambda x: x.sum() if split is None
+                else torch.stack([x[:split].sum(), x[split:].sum()]))
+        zero = torch.zeros(() if split is None else 2, device=logits.device)
+        rec = {"live0": live0, "ml": zero, "t_ml": zero, "kd": None,
+               "t_kd": None}
+        targets = None
+        if c.train_ml is not None or c.feedback == "teacher" \
+                or split is not None:
+            imitation = (c.is_tf if split is not None
+                         else c.feedback == "teacher")
+            targets = self._targets(state, gmap, pano, t_step, imitation,
+                                    c.ep)
             step_ce, _ = L.masked_softmax_ce(logits.float(), targets,
                                              env.ignore_id)
-            ml = step_ce.sum()
+            rec["ml"] = sums(step_ce)
         if c.kdl and c.train_ml is not None:
             d = c.distill
             t_ce, _ = L.masked_softmax_ce(t_logits.float(), targets,
                                           env.ignore_id)
-            t_ml = t_ce.sum()
-            t_sw = s_sw = None
-            if c.mktd:
-                t_sw = L.mktd_sample_weights(t_ce, d.sample_preprocess,
-                                             d.sample_exp_decay).detach()
-                s_sw = L.mktd_sample_weights(step_ce, d.sample_preprocess,
-                                             d.sample_exp_decay).detach()
-            ab_w = (L.mkrw_weights(gen, 5, d.rw_temp, logits.device)
-                    if c.rw else None)
-            gate = live0.any().float()
-            step_losses = lambda role, s_o, t_o, sw, learned: {
-                k: v * gate for k, v in D.makd_step_losses(
-                    d, t_step, s_o, t_o, self.model.kd_project, targets,
-                    ab_w, sw, learned, role=role,
-                    ignore_id=env.ignore_id).items()}
-            kd = step_losses("t2s", outs, t_outs, t_sw, c.s_learned)
-            if c.icod:
-                t_kd = step_losses("s2t", t_outs, outs, s_sw, c.t_learned)
+            rec["t_ml"] = sums(t_ce)
+            rec["kd"], rec["t_kd"] = {}, ({} if c.icod else None)
+            for half, sl in rows.items():
+                part = (lambda x: x) if sl is None else _rows(sl)
+                t_sw = s_sw = None
+                if c.mktd:
+                    t_sw = L.mktd_sample_weights(
+                        part(t_ce), d.sample_preprocess,
+                        d.sample_exp_decay).detach()
+                    s_sw = L.mktd_sample_weights(
+                        part(step_ce), d.sample_preprocess,
+                        d.sample_exp_decay).detach()
+                ab_w = (L.mkrw_weights(gen, 5, d.rw_temp, logits.device)
+                        if c.rw else c.ab_static)
+                gate = part(live0).any().float()
+                s_o, t_o, tg = part(outs), part(t_outs), part(targets)
+                step_losses = lambda role, a, b, sw, learned: {
+                    k: v * gate for k, v in D.makd_step_losses(
+                        d, t_step, a, b, self.model.kd_project, tg, ab_w, sw,
+                        learned, role=role, ignore_id=env.ignore_id).items()}
+                rec["kd"][half] = step_losses("t2s", s_o, t_o, t_sw,
+                                              c.s_learned)
+                if c.icod:
+                    rec["t_kd"][half] = step_losses("s2t", t_o, s_o, s_sw,
+                                                    c.t_learned)
 
-        policy = (t_logits if c.kdl and c.use_teacher_policy
-                  else logits).detach()
-        action = self.select_action(policy, c.feedback, gen, targets, gmap)
-        stop_prob = torch.softmax(policy.float(), dim=-1)[:, 0]
-        chosen = self.transition(state, gmap, action, stop_prob, t_step, pano,
-                                 c.ep, False, c.feedback)
-        return state, chosen, live0, ml, t_ml, kd, t_kd
+        policy = t_logits if c.kdl and c.use_teacher_policy else logits
+        action = self.select_action(policy.detach(), c.feedback, gen,
+                                    targets, gmap, self._explore_mask(vp_base),
+                                    c.is_tf)
+        stop_prob = torch.softmax(policy.detach().float(), dim=-1)[:, 0]
+        if c.train_rl:
+            logp = torch.log_softmax(policy.float(), dim=-1)
+            rec["logp"] = logp.gather(1, action[:, None])[:, 0]
+            rec["entropy"] = -(logp.exp() * torch.where(
+                torch.isfinite(logp), logp, 0.0)).sum(-1)
+            rec["value"] = c.critic(outs["cls_embeds"]).float()
+            rec["live"] = (~state.ended).float()
+            ended_before = state.ended
+            goal_dist = lambda: self.t.dist[state.scan, state.cur, state.goal]
+            d_before = goal_dist()
+        rec["chosen"] = self.transition(state, gmap, action, stop_prob,
+                                        t_step, pano, c.ep, self.local_acts,
+                                        c.feedback, is_tf=c.is_tf)
+        if c.train_rl:
+            d_after = goal_dist()
+            bonus = torch.where(d_after < env.error_margin, 2.0, -2.0)
+            rec["reward"] = ((d_before - d_after) * rec["live"]
+                             + torch.where(state.ended & ~ended_before,
+                                           bonus, 0.0))
+        return state, rec
+
+
+def _rows(sl):
+    """``tree`` (dicts, lists and tuples of tensors, each batch-major) cut
+    to the rows ``sl``."""
+    def take(tree):
+        if isinstance(tree, dict):
+            return {k: take(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(take(v) for v in tree)
+        return tree[sl] if isinstance(tree, torch.Tensor) else tree
+
+    return take
+
+
+def _a2c_losses(recs, gamma: float) -> dict:
+    """The A2C terms of a rollout's step records (JAX ``rollout.py``
+    1451-1468): the returns G_t = r_t + gamma * G_{t+1} * live_t, the
+    advantage G_t - V_t without gradient, ``rl_loss`` = -sum(logp * adv *
+    live) + 0.5 * sum((V - G)^2 * live) and ``rl_entropy`` = sum(entropy *
+    live)."""
+    stack = lambda k: torch.stack([r[k] for r in recs])       # [T, B]
+    reward, live, value = stack("reward"), stack("live"), stack("value")
+    g = torch.zeros_like(reward[0])
+    returns = []
+    for t in reversed(range(len(recs))):
+        g = reward[t] + gamma * g * live[t]
+        returns.append(g)
+    returns = torch.stack(returns[::-1])
+    adv = (returns - value).detach()
+    policy_loss = -(stack("logp") * adv * live).sum()
+    value_loss = 0.5 * (((value - returns) ** 2) * live).sum()
+    return {"rl_loss": policy_loss + value_loss,
+            "rl_entropy": (stack("entropy") * live).sum()}
+
+
+def selective_remat(policy: str, counts: dict | None = None):
+    """``context_fn`` of ``torch.utils.checkpoint`` for the remat policies
+    of JAX's rollout (``jax.checkpoint_policies``), as selective activation
+    checkpointing: the outputs of the ops below are saved in the forward,
+    everything else is recomputed in the backward.
+
+    ``dots`` (``dots_with_no_batch_dims_saveable``): the weight products.
+    ``nn.Linear`` reaches ``aten.mm`` or ``aten.addmm`` (``F.linear``
+    folds a 3-D input to 2-D; with a bias, ``addmm``).  ``dots_all``
+    (``dots_saveable``): also the batched products, the attention scores
+    and outputs (``aten.bmm``) and the branch-fused trunk's per-branch
+    linears (``aten.baddbmm``).  These are the products that the port's
+    layers reach (``torch.einsum`` and ``torch.matmul`` reach ``bmm``), on
+    the CPU (``tests/test_torch_train_options.py``) and on the card
+    (``chip_smoke.py`` phase 8; torch 2.11, H100): a full-width MAKD step
+    reaches ``addmm`` 6,544 times and ``bmm`` 2,460 times, and ``mm``
+    never (every ``nn.Linear`` there has a bias).  ``counts``: each
+    forward op the policy decides on is counted there, by op."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    saved = REMAT_SAVED.get(policy)
+    if saved is None:
+        raise ValueError(f"invalid remat policy {policy!r}: use 'full', "
+                         f"{', '.join(map(repr, REMAT_SAVED))}")
+
+    def decide(ctx, op, *args, **kwargs):
+        if counts is not None and not ctx.is_recompute:
+            counts[op] = counts.get(op, 0) + 1
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(decide)
+
+
+_aten = torch.ops.aten
+# the ops whose outputs each selective remat policy saves
+REMAT_SAVED = {
+    "dots": (_aten.mm.default, _aten.addmm.default),
+    "dots_all": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                 _aten.baddbmm.default),
+}
 
 
 def _record_hop(nodes, ln, stepping, nxt):

@@ -303,11 +303,6 @@ def refuse_unported(args) -> None:
     checks = [
         (train and (args.use_transpeaker or bool(args.speaker)),
          "the back-translation speaker (--use_transpeaker, --speaker)", 6),
-        (train and (bool(args.aug) or args.env_edit or args.use_aug_env),
-         "training on aug batches (--aug, --env_edit, --use_aug_env)", 2),
-        (train and args.train_kdl and args.kdl_adaptive_ability_weight
-         and args.kdl_adaptive_ability_weight_type == "grad",
-         "--kdl_adaptive_ability_weight_type grad", 2),
         (args.mode in ("train", "valid") and mesh,
          f"a device mesh (--dp {args.dp}, --mp {args.mp}, --world_size "
          f"{args.world_size})", 7),
@@ -327,6 +322,40 @@ def feature_store(args, feat_dim: int):
     if os.path.exists(args.img_ft_file):
         return ImageFeatureStore(args.img_ft_file, feat_dim)
     return HashFeatureStore(feat_dim)
+
+
+def aug_feature_table(args, world):
+    """The EnvEdit feature table of ``--env_edit``/``--use_aug_env``, in
+    the world's feature layout, else None: the tree's EnvEdit HDF5 file
+    when it exists, else the hash store at seed 1 (``args.seed + 1`` on
+    the synthetic world), as JAX's ``build_dataset`` builds it."""
+    if not (args.env_edit or args.use_aug_env):
+        return None
+    from ..data import HashFeatureStore, ImageFeatureStore
+
+    dim = world.tables.features.shape[-1]
+    if not os.path.isdir(args.connectivity_dir):
+        return build_aug_table(world, HashFeatureStore(dim,
+                                                       seed=args.seed + 1))
+    if os.path.exists(args.aug_img_ft_file):
+        store = ImageFeatureStore(args.aug_img_ft_file, dim)
+        try:
+            return build_aug_table(world, store)
+        finally:
+            store.close()
+    return build_aug_table(world, HashFeatureStore(dim, seed=1))
+
+
+def build_aug_table(world, store):
+    """An alternate per-scan view-feature table shaped like
+    ``world.tables.features`` from ``store`` (the EnvEdit aug DB,
+    reference env.py:39,78; JAX's ``_build_aug_table``)."""
+    t = world.tables
+    aug = np.zeros_like(np.asarray(t.features))
+    fn = store.feature_fn()
+    for si, g in enumerate(world.graphs):
+        aug[si, : g.num_nodes] = fn(g.scan, g.node_ids)
+    return aug
 
 
 def build_dataset(args, cfg):
@@ -535,6 +564,11 @@ def _gmap_overflow_warning(split, n, cfg):
 
 
 def train(args, cfg, world, splits):
+    """``--mode train``: ``Trainer.fit`` in intervals of ``--log_every``,
+    with the train state saved after each; ``--aug`` batches (on the
+    EnvEdit table, ``aug_feature_table``) alternate with the train split's
+    every ``--aug_times``, and the ``grad`` ability weights are refreshed
+    at iteration 0 and every ``--aw_update_iter``."""
     import signal
 
     from ..agent.navigator import Navigator
@@ -550,7 +584,8 @@ def train(args, cfg, world, splits):
                    if isinstance(v, (int, float, str, bool, list, type(None)))},
                   f, indent=2)
 
-    trainer = Trainer(cfg, world, device=args.device)
+    trainer = Trainer(cfg, world, device=args.device,
+                      aug_features=aug_feature_table(args, world))
     resumed = False
     if args.auto_resume:
         # preemption recovery: pick up the full train state (params, both
@@ -613,6 +648,9 @@ def train(args, cfg, world, splits):
     write_to_record_file("training loop armed (SIGTERM-safe)", record)
 
     nav = Navigator(cfg, world, device=args.device)
+    grad_aw = (cfg.distill.adaptive_ability_weight
+               and cfg.distill.adaptive_ability_weight_type == "grad"
+               and trainer.kdl)
     needs_dicts = args.z_instr_update or _front_flags(cfg.model)
     # dictionaries from files first (--*_backdoor/frontdoor_dict_file); the
     # iter-0 / periodic refresh overwrites them when it runs
@@ -659,16 +697,21 @@ def train(args, cfg, world, splits):
     it = trainer.iteration
     if needs_dicts:
         refresh(it)
+    if grad_aw:
+        trainer.update_ability_grads(splits["train"][: cfg.train.batch_size])
     if args.eval_first:
         run_validation(it, save_best=False)
 
+    aug_items = splits.get("aug")
     try:
         while it < args.iters:
             interval = min(args.log_every, args.iters - it)
             in_fit[0] = True
             try:
                 hist = trainer.fit(splits["train"], interval, log_every=1,
-                                   callback=_after_step)
+                                   callback=_after_step, aug_items=aug_items,
+                                   aug_times=args.aug_times if aug_items
+                                   else 0)
             finally:
                 in_fit[0] = False
             _after_step(None, None)
@@ -676,6 +719,9 @@ def train(args, cfg, world, splits):
             mean = {k: float(np.mean([h[k] for h in hist if k in h]))
                     for k in hist[-1]}
             logger.log(it, {f"loss/{k}": v for k, v in mean.items()})
+            if grad_aw:
+                logger.log(it, {f"ability_grad/{i}": float(g) for i, g in
+                                enumerate(trainer.ability_grads)})
             write_to_record_file(
                 f"iter {it}/{args.iters} loss={mean.get('loss', 0):.3f} "
                 f"({time.time() - t0:.0f}s)", record)
@@ -691,6 +737,10 @@ def train(args, cfg, world, splits):
             if needs_dicts and args.update_iter and \
                     prev_it // args.update_iter != it // args.update_iter:
                 refresh(it)
+            if grad_aw and args.aw_update_iter and \
+                    prev_it // args.aw_update_iter != it // args.aw_update_iter:
+                trainer.update_ability_grads(
+                    splits["train"][: cfg.train.batch_size])
             if run_validation(it) and needs_dicts:
                 refresh(it)
             # latest .pt (+ teacher_ prefix when co-training, + optimizer
