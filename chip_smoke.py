@@ -163,9 +163,34 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     with every text, view and map head, the dictionaries rebuilt on the
     train split (language, CFP and k-means timed apart), ``train`` with
     ``--z_instr_update --update_iter 1`` for 2 iterations (both roles'
-    dictionaries refreshed each), ``valid --ensemble_n 3 --for_debug``.
+    dictionaries refreshed each), ``valid --ensemble_n 3 --for_debug``;
+15. the back-translation speaker (``agent/speaker.py``,
+    ``models/speaker.py``), each path counted for attention launches,
+    which must stay 0 (every speaker attention is the einsum path, as
+    JAX's ``use_pallas=False``): (a) in f32 the golden speaker,
+    ``tests/fixtures/golden_speaker_17.npz`` (JAX's weights, logits, loss,
+    gradients, greedy and beam-3 decodes at length penalty 1 and 0.7):
+    logits to 1e-5, the loss to 1e-6 relative, the gradients to 1e-5
+    relative L2, the tokens equal, the beam scores to 1e-5; (b) at the
+    reference contract's width (vocabulary 992, hidden 512, word 256, 3
+    layers, 4 heads, CLIP-768 + 128 angle features, 15 steps, 80 tokens,
+    batch 16) on phase 4's world and items: ms a ``train_step`` (median of
+    3 after a warm-up), peak memory, ms a greedy ``infer_batch`` and a
+    beam-4 ``back_translate`` with the host's ``path_features`` apart,
+    device launches a decode, BLEU from the C++ library (its results equal
+    to the numpy versions on a random corpus); (c) ``Trainer.fit(speaker=)``
+    at ``bench.py --train``'s shape, a train batch then a back-translated
+    aug batch (the wall of each, the back-translation's share); (d)
+    ``cli.train_speaker`` at full width (``--synthetic_feat_dim 768``) for 3
+    iterations and a ``--speaker`` resume; and, on phase 13's tree before
+    it is removed, ``run_r2r_kdl.sh``'s student recipe without the
+    distillation, with an aug split and ``--use_transpeaker``, for two
+    iterations, then a ``--speaker
+    speaker_latest.pt --loadOptim`` run that writes the ``loaded speaker
+    checkpoint`` record line.
 
-Then the per-kernel summary line, the card line, and the result line.
+Then the script's wall, the per-kernel summary line, the card line, and
+the result line.
 """
 
 from __future__ import annotations
@@ -1429,7 +1454,16 @@ GOLDEN_OPTIONS_SPEC = {
                             "teacher_sample_hard_mining": True,
                             "adaptive_ability_weight": True,
                             "adaptive_ability_weight_type":
-                                "learned_weight"}}},
+                                "learned_weight"}},
+        # the a2c run with bf16 weight-gradient sums (f32 compute)
+        "a2c_bf16": {"model": {},
+                     "train": {"batch_size": 4, "train_alg": "a2c",
+                               "ml_weight": 0.2, "grads_dtype": "bfloat16"},
+                     "distill": {"train_kdl": True, "train_teacher": False,
+                                 "teacher_sample_hard_mining": True,
+                                 "adaptive_ability_weight": True,
+                                 "adaptive_ability_weight_type":
+                                     "learned_weight"}}},
     # the fused run's ability-gradient norms (the 'grad' weights' input)
     "ability_grads": [3.0, 1.0, 4.0, 1.5, 2.5],
     # its aug table: the world's features with the views rolled by one
@@ -1568,10 +1602,11 @@ def options_optimizer_run(kind, fix, spec=GOLDEN_OPTIONS_SPEC):
 
 def golden_train_options(device="cuda"):
     """The port on the golden training options (``OPTIONS_FIXTURE``): the
-    fused run's and the A2C run's ``compute_grads`` (the objective to 1e-5
-    relative, each partition's gradient norm and kept leaf to 1e-4), the
-    ability-gradient norms of one ``update_ability_grads`` (1e-4
-    relative) and each optimizer's seven steps (1e-5 relative, 1e-7
+    fused run's and the A2C runs' ``compute_grads`` (the objective to 1e-5
+    relative, each partition's gradient norm and kept leaf to 1e-4; the
+    bf16-gradient A2C run's gradients to 1e-2, the order of the bf16
+    sums), the ability-gradient norms of one ``update_ability_grads``
+    (1e-4 relative) and each optimizer's seven steps (1e-5 relative, 1e-7
     absolute).  Returns the errors; raises when one is over its
     tolerance."""
     from vln_magic_tpu_torch import config as tcfg
@@ -1606,14 +1641,15 @@ def golden_train_options(device="cuda"):
             with _SampleAsArgmax(Rollout):
                 loss, grads = tr.compute_grads(items, seed=spec["seed"])
         check(f"{run}/loss", loss.item(), fx[f"{run}/loss"], 1e-5)
+        gtol = 1e-2 if tr.cfg.train.grads_dtype == "bfloat16" else 1e-4
         for part, g in grads.items():
             norm = math.sqrt(sum(float((x.double() ** 2).sum())
                                  for x in g.values()))
             check(f"{run}/grad_norm/{part}", norm,
-                  fx[f"{run}/grad_norm/{part}"], 1e-4)
+                  fx[f"{run}/grad_norm/{part}"], gtol)
             prefix = f"{run}/grad/{part}/"
             for k in [k for k in fx if k.startswith(prefix)]:
-                check(k, g[k[len(prefix):]].cpu().numpy(), fx[k], 1e-4)
+                check(k, g[k[len(prefix):]].cpu().numpy(), fx[k], gtol)
         if run == "fused":
             tr.ability_grads = np.zeros(5, np.float32)
             check("ability_grads", tr.update_ability_grads(items),
@@ -1648,8 +1684,8 @@ def phase_golden_train(card):
                                if k.startswith(prefix))
     emit({"phase": "golden_train_options", "fixture": os.path.relpath(
         OPTIONS_FIXTURE, ROOT), "max_rel": {
-            p: worst(p) for p in ("fused/", "a2c/", "ability_grads",
-                                  "optim/")},
+            p: worst(p) for p in ("fused/", "a2c/", "a2c_bf16/",
+                                  "ability_grads", "optim/")},
           "errors": {k: v for k, v in errs.items()
                      if not k.startswith("optim/")},
           "kernels": launches,
@@ -3376,6 +3412,455 @@ def phase_cli_interventions(card, root, out, pt):
     return launches
 
 
+# ---- phase 15: the back-translation speaker --------------------------------
+
+# the golden speaker: JAX's Speaker initialised from PRNGKey(seed) on a tiny
+# world; one item's path is cut to its first node (an all-False step mask)
+GOLDEN_SPEAKER_SPEC = {
+    "seed": 17,
+    "world": {"num_scans": 1, "nodes_per_scan": 14, "feat_dim": 16,
+              "seed": 41},
+    "items": {"num_items": 4, "min_path": 2, "max_path": 5, "seed": 6},
+    "one_node_path": 3,
+    "model": {"max_steps": 4, "max_len": 12, "hidden": 64, "layers": 2,
+              "heads": 2, "word_size": 32},
+    # 56 words: 60 tokens with PAD, BOS, EOS and UNK; the synthetic
+    # instructions' words come first
+    "vocab": ("forward left right around straight through past into table "
+              "door stairs kitchen sofa window hallway lamp walk then turn "
+              "go the toward at and stop wait near beside up down exit "
+              "enter red blue room bedroom bathroom chair bed rug painting "
+              "plant counter sink mirror shelf desk piano arch corner step "
+              "landing end halfway again").split(),
+    "beam": 3,
+    "length_penalties": [1.0, 0.7],
+    "noise_seed": 5,
+}
+SPEAKER_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "golden_speaker_17.npz")
+# the reference contract (transpeaker.py:34-39, parser.py:117-119) at
+# main_nav's lengths: T 15, max_len min(--maxDecode, 80); bench.py
+# --train's batch
+SPEAKER_WIDTH = {"vocab_size": 992, "hidden": 512, "word_size": 256,
+                 "layers": 3, "heads": 4, "max_steps": MAIN_T, "max_len": 80}
+SPEAKER_BATCH, SPEAKER_BEAM, SPEAKER_STEPS = 16, 4, 3
+TRAIN_SPEAKER_FLAGS = ["--synthetic_feat_dim", "768", "--iters", "3",
+                       "--log_every", "3"]
+# run_r2r_kdl.sh's student recipe without the distillation, which phase 13
+# (b) runs: what is new here is the speaker's aug batches (with the
+# teacher, each run took 23-25 s and the phase 94 s)
+SPEAKER_CLI_FLAGS = [
+    "--dataset", "r2r", "--mode", "train", "--train_alg", "dagger",
+    "--batch_size", "16", "--lr", "4e-5", "--ml_weight", "0.2",
+    "--max_action_len", "15", "--max_instr_len", "200", "--expert_policy",
+    "spl", "--feat_dropout", "0.4", "--student_hidden_size", "128",
+    "--student_num_attention_heads", "2"]
+
+
+def speaker_world_items(module, spec=GOLDEN_SPEAKER_SPEC):
+    """The golden speaker's world and items from either package's ``env``
+    module."""
+    world = module.make_synthetic_world(**spec["world"])
+    i = spec["items"]
+    items = module.synthetic.make_synthetic_instructions(
+        world, i["num_items"], np.random.default_rng(i["seed"]),
+        min_path=i["min_path"], max_path=i["max_path"])
+    k = spec["one_node_path"]
+    items[k]["path_idx"] = np.asarray(items[k]["path_idx"])[:1]
+    return world, items
+
+
+def speaker_outputs(sp, items, tok, spec=GOLDEN_SPEAKER_SPEC) -> dict:
+    """What the golden speaker fixture holds, from the port's ``Speaker``
+    ``sp`` in ``eval()``: the teacher-forced logits, loss and gradients
+    (flax names and layouts), the greedy decode and the beam decodes at
+    each length penalty, as numpy."""
+    from vln_magic_tpu_torch.models.speaker import beam_decode
+    from vln_magic_tpu_torch.utils.weights import flax_named_grads
+
+    sp.model.eval()
+    cand, pano, masks = sp._tensors(*sp.path_features(items))
+    tokens, tok_masks = sp._tensors(*sp.encode_targets(items, tok))
+    with torch.no_grad():
+        logits = sp.model(cand, pano, masks, tokens[:, :-1].long())
+    sp.model.zero_grad()
+    loss = sp.loss(cand, pano, masks, tokens, tok_masks)
+    loss.backward()
+    out = {"logits": logits.cpu().numpy(), "loss": np.float32(loss.item()),
+           "greedy": sp.infer_batch(items, tok)}
+    out.update({f"g/{k}": v.cpu().numpy()
+                for k, v in flax_named_grads(sp.model).items()})
+    sp.model.zero_grad()
+    for lp in spec["length_penalties"]:
+        toks, scores = beam_decode(sp.model, cand, pano, masks, sp.L,
+                                   tok.BOS, tok.EOS, beam=spec["beam"],
+                                   length_penalty=lp)
+        out[f"beam/{lp}/tokens"] = toks.to(torch.int32).cpu().numpy()
+        out[f"beam/{lp}/scores"] = scores.cpu().numpy()
+    return out
+
+
+def check_speaker(got: dict, want: dict) -> dict:
+    """``speaker_outputs`` against JAX's (``want``, the fixture's or a live
+    run's): the logits within 1e-5, the loss within 1e-6 relative, the
+    gradients within 1e-5 relative L2, the greedy and beam tokens equal
+    (a greedy token may differ only where JAX's top-2 logit gap,
+    ``greedy_gap``, is under 1e-5 at the first differing position) and the
+    beam scores within 1e-5 (relative above 1).  Returns the errors;
+    raises when one is over its tolerance."""
+    errs, bad = {}, []
+    errs["logits"] = float(np.max(np.abs(got["logits"] - want["logits"])))
+    errs["loss_rel"] = float(abs(got["loss"] - want["loss"])
+                             / abs(want["loss"]))
+    names = sorted(k for k in want if k.startswith("g/"))
+    if sorted(k for k in got if k.startswith("g/")) != names:
+        bad.append("gradient names")
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2))
+              for k in names)
+    den = sum(float(np.sum(want[k].astype(np.float64) ** 2)) for k in names)
+    errs["grads_rel_l2"] = math.sqrt(num / den)
+    for key, tol in (("logits", 1e-5), ("loss_rel", 1e-6),
+                     ("grads_rel_l2", 1e-5)):
+        if not errs[key] <= tol:
+            bad.append(f"{key} {errs[key]} > {tol}")
+    diff = np.argwhere(got["greedy"] != want["greedy"])
+    errs["greedy_tokens_differing"] = int(len(diff))
+    if len(diff):
+        b = diff[0][0]
+        i = int(np.flatnonzero(got["greedy"][b] != want["greedy"][b])[0])
+        gap = float(want["greedy_gap"][b, i - 1])
+        errs["greedy_first_diff_gap"] = gap
+        if not gap < 1e-5:
+            bad.append(f"greedy row {b} differs at {i} (JAX's top-2 gap "
+                       f"{gap})")
+    errs["beam_scores"] = 0.0
+    for k in [k for k in want if k.startswith("beam/")]:
+        if k.endswith("/tokens"):
+            if not np.array_equal(got[k], want[k]):
+                bad.append(f"{k} differ")
+        else:
+            err = np.abs(got[k] - want[k]) / np.maximum(np.abs(want[k]), 1)
+            errs["beam_scores"] = max(errs["beam_scores"], float(err.max()))
+            if not err.max() <= 1e-5:
+                bad.append(f"{k} {float(err.max())} > 1e-5")
+    if bad:
+        raise AssertionError("golden speaker: " + "; ".join(bad))
+    return errs
+
+
+def golden_speaker_port(device="cuda", spec=GOLDEN_SPEAKER_SPEC):
+    """The port's golden speaker (the fixture's weights on its world):
+    (speaker, items, tokenizer)."""
+    from vln_magic_tpu_torch import env as tenv
+    from vln_magic_tpu_torch.agent.speaker import Speaker, SpeakerTokenizer
+    from vln_magic_tpu_torch.utils.weights import load_flax_params
+
+    world, items = speaker_world_items(tenv, spec)
+    tok = SpeakerTokenizer(list(spec["vocab"]))
+    sp = Speaker(world, feat_dim=spec["world"]["feat_dim"],
+                 vocab_size=tok.vocab_size, device=device, **spec["model"])
+    fx = np.load(SPEAKER_FIXTURE)
+    load_flax_params(sp.model, {k[2:]: fx[k] for k in fx.files
+                                if k.startswith("w/")})
+    return sp, items, tok
+
+
+def golden_speaker(device="cuda"):
+    """``SPEAKER_FIXTURE`` through the port: ``check_speaker``'s errors."""
+    fx = dict(np.load(SPEAKER_FIXTURE))
+    if json.loads(str(fx["spec"])) != json.loads(json.dumps(
+            GOLDEN_SPEAKER_SPEC)):
+        raise AssertionError("golden speaker: the fixture's spec is not "
+                             "GOLDEN_SPEAKER_SPEC")
+    sp, items, tok = golden_speaker_port(device)
+    return check_speaker(speaker_outputs(sp, items, tok), fx)
+
+
+def native_against_numpy(seed=0):
+    """The port's C++ ``native`` against its numpy versions on a random
+    corpus: BLEU counts, edit distances, batches and WER equal.  Returns
+    the corpus size and the C++ BLEU."""
+    from vln_magic_tpu_torch import native
+
+    if not native.native_available():
+        raise AssertionError("native: the g++ build failed")
+    rng = np.random.default_rng(seed)
+    seqs = lambda n: [rng.integers(0, 30, rng.integers(0, 40)).tolist()
+                      for _ in range(n)]
+    hyps, refs = seqs(256), seqs(256)
+    lengths = rng.integers(1, 60, 500)
+    words = [" ".join(f"w{x}" for x in s) for s in hyps]
+
+    def run():
+        return {"bleu_counts": native.bleu_counts(hyps, refs).tolist(),
+                "bleu": native.bleu_score(hyps, refs),
+                "edit_distance": native.edit_distance(hyps, refs).tolist(),
+                "batches": [b.tolist() for b in native.batch_by_size(
+                    lengths, max_tokens=400, max_sentences=16)],
+                "wer": native.wer(hyps, refs),
+                "wer_text": native.wer(words, words[::-1])}
+
+    cpp = run()
+    orig = native._load
+    native._load = lambda: None
+    try:
+        plain = run()
+    finally:
+        native._load = orig
+    if cpp != plain:
+        raise AssertionError("native: the C++ results differ from numpy's: "
+                             + str([k for k in cpp if cpp[k] != plain[k]]))
+    return {"pairs": len(hyps), "bleu": cpp["bleu"], "wer": cpp["wer"],
+            "library": os.path.relpath(native.lib_path(), ROOT)}
+
+
+def _speaker_vocab(items, size=988):
+    """``size`` words: those of ``items``' instructions, then fillers."""
+    words = sorted({w.lower().strip(".,!?") for it in items
+                    for w in it["instruction"].split()})
+    return words + [f"word{i}" for i in range(size - len(words))]
+
+
+def _no_launches(what, fn):
+    """``fn()`` with the attention kernels' counts at 0 just before and
+    read just after; none may launch.  Returns (result, launches)."""
+    _reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"{what}: attention kernel launches "
+                             f"{launches}, want 0 (the speaker's attention "
+                             "is the einsum path, as JAX's)")
+    return out, launches
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _profiled_decode(fn):
+    """``device_breakdown`` of ``fn()`` under ``torch.profiler``: its
+    device kernels' launches and time, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_breakdown(prof, 1e3 * (time.perf_counter() - t0), top=3)
+
+
+def _speaker_full_width(card, world, items):
+    """Phase 15 (b): the speaker at the reference contract's width."""
+    from vln_magic_tpu_torch.agent.speaker import Speaker, SpeakerTokenizer
+
+    w = SPEAKER_WIDTH
+    tok = SpeakerTokenizer(_speaker_vocab(items, w["vocab_size"] - 4))
+    sp = Speaker(world, feat_dim=world.tables.feat_dim,
+                 vocab_size=tok.vocab_size, device="cuda",
+                 **{k: v for k, v in w.items() if k != "vocab_size"})
+    batch = items[:SPEAKER_BATCH]
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(SPEAKER_STEPS + 1):
+        (loss, ms) = _synced_ms(lambda: sp.train_step(batch, tok))
+        if not math.isfinite(loss):
+            raise AssertionError(f"speaker train_step: loss {loss}")
+        step_ms.append(ms)
+    _, launches["speaker_train_step"] = _no_launches(
+        "speaker train_step", lambda: sp.train_step(batch, tok))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    sp.path_features(batch)
+    feat_ms = 1e3 * (time.perf_counter() - t0)
+    sp.infer_batch(batch, tok)                            # warm-up
+    greedy, launches["speaker_greedy"] = _no_launches(
+        "speaker greedy", lambda: _synced_ms(
+            lambda: sp.infer_batch(batch, tok)))
+    beam, launches["speaker_beam"] = _no_launches(
+        "speaker beam", lambda: _synced_ms(lambda: sp.back_translate(
+            batch, tok, rng=1, beam=SPEAKER_BEAM)))
+    greedy_prof = _profiled_decode(lambda: sp.infer_batch(batch, tok))
+    beam_prof = _profiled_decode(lambda: sp.back_translate(
+        batch, tok, rng=1, beam=SPEAKER_BEAM))
+    tokens, bleu = greedy[0], sp.evaluate(batch, tok)
+    if tokens.shape != (SPEAKER_BATCH, w["max_len"]) or \
+            not (tokens[:, 0] == tok.BOS).all():
+        raise AssertionError(f"speaker greedy decode: {tokens.shape}")
+    emit({"phase": "speaker_full_width", "width": w,
+          "feat_size": world.tables.feat_dim + 128, "batch": SPEAKER_BATCH,
+          "compute": "float32, TF32 off",
+          "train_step_ms": sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+          "train_step_ms_all": step_ms, "peak_bytes": peak,
+          "path_features_host_ms": feat_ms,
+          "greedy_ms": greedy[1], "greedy_profile": greedy_prof,
+          "beam_ms": beam[1], "beam": SPEAKER_BEAM,
+          "beam_profile": beam_prof,
+          "decode_positions": w["max_len"] - 1,
+          "bleu_random_weights": bleu, "native": native_against_numpy(),
+          "kernels": launches, "card": card})
+    return sp, tok, launches
+
+
+def _speaker_fit(card, world, items, sp, tok):
+    """Phase 15 (c): ``Trainer.fit(speaker=)`` at ``bench.py --train``'s
+    shape, two iterations: a train batch, then an aug batch
+    back-translated by the full-width speaker."""
+    from vln_magic_tpu_torch.agent.speaker import Speaker
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+
+    tr = Trainer(train_config(), world, device="cuda")
+    train_items = items[:TRAIN_BATCH]
+    aug_items = [dict(it) for it in items[TRAIN_BATCH:2 * TRAIN_BATCH]]
+    with _recorded(Trainer, "train_step") as steps, \
+            _recorded(Speaker, "back_translate") as bts:
+        (hist, wall), launches = _no_launches(
+            "fit(speaker=)", lambda: _synced_ms(lambda: tr.fit(
+                train_items, 2, aug_items=aug_items, speaker=sp,
+                speaker_tok=tok, aug_times=1)))
+    if [h["aug"] for h in hist] != [0.0, 1.0] or len(bts) != 1:
+        raise AssertionError(f"fit(speaker=): aug flags "
+                             f"{[h['aug'] for h in hist]}, "
+                             f"{len(bts)} back-translations")
+    _finite("fit(speaker=)", hist)
+    from vln_magic_tpu_torch.data.tokenizer import HashTokenizer
+
+    # the aug batch that train_step received is the back-translated one,
+    # re-encoded with the navigator's tokenizer
+    got, translated = steps[1][1][1], bts[0][2][0]
+    enc = HashTokenizer(tr.cfg.model.vocab_size).encode
+    if got is not translated or any(
+            not np.array_equal(b["instr_encoding"], enc(b["instruction"]))
+            for b in got):
+        raise AssertionError("fit(speaker=): the aug batch was not the "
+                             "back-translated, re-encoded one")
+    bt_ms = 1e3 * bts[0][0]
+    step_ms = [1e3 * s[0] for s in steps]
+    emit({"phase": "speaker_fit", "config": "bench.py --train (train_config)",
+          "iterations": 2, "wall_ms": wall, "train_step_ms": step_ms,
+          "back_translate_ms": bt_ms,
+          "iteration_ms": [step_ms[0], step_ms[1] + bt_ms],
+          "back_translate_share": bt_ms / (step_ms[1] + bt_ms),
+          "metrics": hist, "kernels": launches, "card": card})
+    return launches
+
+
+def _train_speaker_cli(card):
+    """Phase 15 (d): ``train_speaker`` at full width, then a ``--speaker``
+    resume."""
+    import shutil
+    import tempfile
+
+    from vln_magic_tpu_torch.cli.train_speaker import main as speaker_main
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_speaker_")
+    runs, launches = [], {}
+    try:
+        out = os.path.join(tmp, "speaker")
+        for name, extra in (("speaker_train_cli", []),
+                            ("speaker_train_cli_resume",
+                             ["--speaker", os.path.join(out, "speaker.pt"),
+                              "--iters", "2", "--log_every", "2"])):
+            argv = TRAIN_SPEAKER_FLAGS + ["--output_dir", out] + extra
+            (res, ms), launches[name] = _no_launches(
+                name, lambda: _synced_ms(lambda: speaker_main(argv)))
+            runs.append({"argv": argv[len(TRAIN_SPEAKER_FLAGS):] or None,
+                         "wall_ms": ms})
+        with open(os.path.join(out, "speaker.txt")) as f:
+            record = f.read()
+        if f"resumed speaker from {out}/speaker.pt (epoch 4)" not in record:
+            raise AssertionError(f"train_speaker: no resume line in "
+                                 f"{record!r}")
+        lines = [ln for ln in record.splitlines() if ln.startswith("iter ")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "speaker_train_cli", "flags": TRAIN_SPEAKER_FLAGS,
+          "runs": runs, "log": lines, "kernels": launches, "card": card})
+    return launches
+
+
+def phase_speaker_cli(card, root, out):
+    """Phase 15 (d), on phase 13's tree: ``SPEAKER_CLI_FLAGS`` with an aug
+    split and ``--use_transpeaker`` for two iterations (one aug batch,
+    back-translated), then again from its ``speaker_latest.pt`` with
+    ``--loadOptim``.  Returns (the launches of each run, all 0, the wall
+    seconds of both)."""
+    import shutil
+
+    from vln_magic_tpu_torch.agent.speaker import Speaker
+    from vln_magic_tpu_torch.cli.main_nav import parse_args
+
+    t0 = time.perf_counter()
+    anno = os.path.join(root, "R2R", "annotations")
+    # --aug names a file whose base name is the split: R2R_aug_enc.json
+    shutil.copy(os.path.join(anno, "R2R_train_enc.json"),
+                os.path.join(anno, "R2R_aug_enc.json"))
+    open(os.path.join(anno, "aug"), "w").close()
+    base = SPEAKER_CLI_FLAGS + ["--root_dir", root, "--iters", "2",
+                            "--log_every", "2", "--for_debug",
+                            "--aug", os.path.join(anno, "aug"),
+                            "--use_transpeaker", "--output_dir", out]
+    runs, launches, ckpt = [], {}, None
+    for name in ("speaker_cli", "speaker_cli_resume"):
+        argv = base + ["--name", f"r2r_{name}"]
+        if ckpt:
+            argv += ["--speaker", ckpt, "--loadOptim"]
+        with _recorded(Speaker, "back_translate") as bts:
+            trainer, wall, peak, launches[name] = _cli(argv)
+        if len(bts) != 1:
+            raise AssertionError(f"{name}: {len(bts)} back-translations in "
+                                 "two iterations, want 1")
+        a = parse_args(argv)
+        ckpt = os.path.join(a.ckpt_dir, "speaker_latest.pt")
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"{name}: no {ckpt}")
+        with open(os.path.join(a.log_dir, "train.txt")) as f:
+            record = f.read()
+        runs.append({"name": name, "wall_s": wall, "peak_bytes": peak,
+                     "iteration": trainer.iteration,
+                     "back_translate_ms": 1e3 * bts[0][0]})
+    want = f"loaded speaker checkpoint {argv[argv.index('--speaker') + 1]}"
+    if want not in record:
+        raise AssertionError(f"cli speaker: no '{want}' in train.txt")
+    wall = time.perf_counter() - t0
+    emit({"phase": "speaker_cli", "flags": "SPEAKER_CLI_FLAGS + --iters 2 "
+          "--log_every 2 --for_debug --aug <R2R_aug_enc.json> "
+          "--use_transpeaker; then --speaker speaker_latest.pt --loadOptim",
+          "runs": runs, "record_line": want, "wall_s": wall,
+          "kernels": launches, "card": card})
+    return launches, wall
+
+
+def phase_speaker(card, world, items, cli):
+    """Phase 15: the golden speaker in f32, the speaker at full width,
+    ``Trainer.fit(speaker=)`` and ``train_speaker``; ``cli`` is what
+    ``phase_speaker_cli`` returned on phase 13's tree.  Returns the
+    launches of each speaker path (all 0)."""
+    launches, cli_wall = cli
+    t0 = time.perf_counter()
+    errs = golden_speaker()
+    emit({"phase": "golden_speaker", "fixture": os.path.relpath(
+        SPEAKER_FIXTURE, ROOT), "errors": errs,
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "card": card})
+    sp, tok, width = _speaker_full_width(card, world, items)
+    launches = {**width, **launches}
+    launches["speaker_fit"] = _speaker_fit(card, world, items, sp, tok)
+    launches.update(_train_speaker_cli(card))
+    wall = time.perf_counter() - t0
+    emit({"phase": "speaker", "wall_s": wall + cli_wall,
+          "wall_s_parts": {"a_b_c_train_speaker": wall, "main_nav": cli_wall},
+          "kernels": launches, "card": card})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3383,6 +3868,7 @@ def main():
     sys.path.insert(0, ROOT)
     import vln_magic_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     card = card_line()
     phase_card_and_build(card)
     packed = phase_kernel_vs_plain(card)
@@ -3398,13 +3884,19 @@ def main():
     pretrain = phase_pretraining(card, nav.world)
     golden_pretrain_launches = phase_golden_pretrain(card)
     options = phase_model_options(card, nav, items)
-    cli, cli14 = phase_cli(card, then=lambda root, out, pt:
-                           phase_cli_interventions(card, root, out, pt))
+    cli, (cli14, speaker_cli) = phase_cli(
+        card, then=lambda root, out, pt: (
+            phase_cli_interventions(card, root, out, pt),
+            phase_speaker_cli(card, root, out)))
     cli.update({k: {"packed_attention": v["packed_attention"],
                     "fused_attention": v["fused_attention"]}
                 for k, v in cli14.items()})
+    speaker = phase_speaker(card, nav.world, items, speaker_cli)
+    emit({"phase": "script", "wall_s": time.perf_counter() - t_start,
+          "card": card})
     cli_note = ("the CLI runs no kernel, as JAX's does not: no flag sets "
-                "ModelConfig.use_pallas_attention")
+                "ModelConfig.use_pallas_attention; the speaker's attention "
+                "is the einsum path (JAX: use_pallas=False)")
     by = lambda s: "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
     emit({"kernels": [{
         "name": "packed_attention", "route": "cuda",
@@ -3447,7 +3939,9 @@ def main():
                                  options["interventions_golden_f32"],
                              "ensemble_wave": options["ensemble_wave"],
                              **{k: v["packed_attention"]
-                                for k, v in cli.items()}},
+                                for k, v in cli.items()},
+                             **{k: v["packed_attention"]
+                                for k, v in speaker.items()}},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
                           "parity": "tensor_core", "golden_f32": "simt",
                           "serve": "tensor_core", "fleet": "tensor_core",
@@ -3460,7 +3954,8 @@ def main():
                           "interventions_wave": "tensor_core",
                           "interventions_golden_f32": "simt",
                           "ensemble_wave": "tensor_core",
-                          **{k: "none" for k in cli}},
+                          **{k: "none" for k in cli},
+                          **{k: "none" for k in speaker}},
         "cli_note": cli_note,
         "per": "one wave of the main path (216 launches, bf16, tensor-core "
                "route)"}, {
@@ -3476,7 +3971,8 @@ def main():
         "exact_limit_used": fused["exact_limit_used"],
         "tc_launches": fused["tc_launches"],
         "route_by_path": {"entry_point": "tensor_core", "f32": "simt",
-                          **{k: "none" for k in cli}},
+                          **{k: "none" for k in cli},
+                          **{k: "none" for k in speaker}},
         "launches_by_path": {"entry_point": fused["launches"],
                              **{"train_step" if k == "default"
                                 else f"train_{k}": v["fused_attention"]
@@ -3484,7 +3980,9 @@ def main():
                              # phase 11 raises on any fused launch
                              "pretrain_step": 0, "pretrain_validate": 0,
                              **{k: v["fused_attention"]
-                                for k, v in cli.items()}},
+                                for k, v in cli.items()},
+                             **{k: v["fused_attention"]
+                                for k, v in speaker.items()}},
         "cli_note": cli_note,
         "per": "its entry point once at each of the six MAGIC-S path "
                "shapes (6 launches, bf16, tensor-core route); no model path "

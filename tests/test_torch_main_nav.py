@@ -484,8 +484,6 @@ def test_sigterm_saves_after_the_step_in_flight(tmp_path, monkeypatch):
 # ---- refusals -------------------------------------------------------------
 
 REFUSED = {
-    "transpeaker": (["--mode", "train", "--use_transpeaker"], 6),
-    "speaker": (["--mode", "train", "--speaker", "s.pt"], 6),
     "dp": (["--mode", "valid", "--dp", "2"], 7),
     "mp": (["--mode", "train", "--mp", "2"], 7),
     "world_size": (["--mode", "valid", "--world_size", "4"], 7),

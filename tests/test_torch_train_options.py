@@ -64,6 +64,7 @@ LEAVES = {
                        "params.global_sap_head.dense.kernel"),
             "critic_params": ("params.Dense_0.kernel", "params.Dense_1.bias")},
 }
+LEAVES["a2c_bf16"] = LEAVES["a2c"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -473,6 +474,7 @@ if __name__ == "__main__":
     arrays = {"spec": np.asarray(json.dumps(SPEC))}
     arrays.update(run_arrays("fused", *jax_fused_run()))
     arrays.update(run_arrays("a2c", *jax_a2c_run()))
+    arrays.update(run_arrays("a2c_bf16", *jax_a2c_run("a2c_bf16")))
     arrays.update(ability_arrays())
     arrays.update(optim_arrays())
     np.savez_compressed(OPTIONS_FIXTURE, **arrays)

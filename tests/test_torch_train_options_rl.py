@@ -33,10 +33,10 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def jax_a2c_run():
-    """JAX's ``compute_grads`` of the A2C run: (objective, grads of the
-    student and the critic)."""
-    tr, items = jax_options_trainer("a2c")
+def jax_a2c_run(run="a2c"):
+    """JAX's ``compute_grads`` of the A2C run (or ``run``, another A2C run
+    of the spec): (objective, grads of the student and the critic)."""
+    tr, items = jax_options_trainer(run)
     with _SampleAsArgmax(jax_rollout.Rollout):
         loss, (grads, c_grads) = tr.compute_grads(
             items, jax.random.PRNGKey(SPEC["seed"]))

@@ -382,11 +382,8 @@ def test_load_trainer_params_carries_all_three_trees(jax_run, port_world):
 
 def test_unported_trainer_entry_points_raise(jax_run, port_world):
     tr = port_trainer_like(jax_run, port_world)
-    items = items_for(port_world)
-    for call in (lambda: tr.use_mesh(None),
-                 lambda: tr.fit(items, 1, speaker=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.use_mesh(None)
 
 
 def test_default_device_needs_a_gpu(port_world):

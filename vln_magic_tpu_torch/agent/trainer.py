@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import MagicConfig
+from ..data.tokenizer import HashTokenizer
 from ..env.world import World
 from ..models.vlnbert import Critic, DualScaleVLNBert
 from ..utils.checkpoint import (CheckpointManager, pretrain_to_nav_key_map,
@@ -554,17 +555,20 @@ class Trainer:
 
     @contextmanager
     def _bf16_weights(self):
-        """``grads_dtype="bfloat16"`` (JAX ``trainer.py:350-362``): the
-        student's, and under ICoD the teacher's, f32 masters are replaced
-        for the step by bf16 copies that are leaves of their own, so every
-        use's gradient, across the step's rollouts, sums into the copy's
-        bf16 ``.grad``; on exit the masters return and take those sums as
-        f32.  Under f32 compute each op converts its bf16 operands to f32
-        where it reads them (``_PromoteBf16``), as flax promotes them;
-        under autocast on the CPU the layer norms do, which CPU autocast
-        leaves to the input's dtype (f32); CUDA autocast casts a layer
-        norm's operands to f32 itself, so there no op is intercepted."""
-        models = [self.model] + ([self.teacher_model] if self.icod else [])
+        """``grads_dtype="bfloat16"`` (JAX ``trainer.py:350-366``, which
+        casts ``params`` and ``t_params``): the student's and the teacher's
+        f32 masters are replaced for the step by bf16 copies that are
+        leaves of their own, so every use's gradient, across the step's
+        rollouts, sums into the copy's bf16 ``.grad``; on exit the masters
+        return and take those sums as f32.  A frozen teacher's copies
+        record no gradient.  Each model's ``bf16_weights`` is set for the
+        step, so that its learned ability weights come out in bf16.  Under
+        f32 compute each op converts its bf16 operands to f32 where it
+        reads them (``_PromoteBf16``), as flax promotes them; under
+        autocast on the CPU the layer norms do, which CPU autocast leaves
+        to the input's dtype (f32); CUDA autocast casts a layer norm's
+        operands to f32 itself, so there no op is intercepted."""
+        models = [self.model] + ([self.teacher_model] if self.kdl else [])
         copies, swaps = {}, []
         for m in models:
             for mod in m.modules():
@@ -582,10 +586,14 @@ class Trainer:
             promote = _PromoteBf16(_LAYER_NORMS)
         else:
             promote = nullcontext()
+        for m in models:
+            m.bf16_weights = True
         try:
             with promote:
                 yield
         finally:
+            for m in models:
+                m.bf16_weights = False
             for mod, name, p in swaps:
                 mod._parameters[name] = p
             for p, low in copies.values():
@@ -675,17 +683,17 @@ class Trainer:
         return dict(zip(names, vals))
 
     def fit(self, items, iters, log_every=100, rng=None, callback=None,
-            aug_items=None, speaker=None, aug_times=1):
+            aug_items=None, speaker=None, speaker_tok=None, aug_times=1):
         """Host loop: shuffle, minibatch, step (JAX ``fit``).  With
         ``aug_items``, every ``aug_times + 1``-th batch is a train batch
         and the others aug batches (read with ``aug=True``), each list
         cycled through its own permutations, all drawn from one data-order
-        rng that persists across calls.  Each history entry carries
-        ``aug``, 1.0 for an aug batch."""
-        if speaker is not None:
-            raise NotImplementedError(
-                "the back-translation speaker (fit(speaker=)) is not ported "
-                "to vln_magic_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
+        rng that persists across calls.  With a ``speaker`` (and its
+        ``speaker_tok``) an aug batch is back-translated first, its noise
+        drawn from ``cfg.train.seed + it`` (``it`` counting from 0 in each
+        call, as JAX's), and each item re-encoded with the navigator's
+        ``HashTokenizer`` (the self-train path, agent.py:737-752).  Each
+        history entry carries ``aug``, 1.0 for an aug batch."""
         r = rng if rng is not None else self._data_rng
         bs = self.cfg.train.batch_size
 
@@ -703,8 +711,16 @@ class Trainer:
         for it in range(iters):
             use_aug = bool(aug_c is not None and aug_times
                            and it % (aug_times + 1) != 0)
-            m = (self.train_step(next(aug_c), aug=True) if use_aug
-                 else self.train_step(next(train_c)))
+            batch = next(aug_c) if use_aug else next(train_c)
+            if use_aug and speaker is not None and speaker_tok is not None:
+                batch, _ = speaker.back_translate(
+                    batch, speaker_tok, rng=self.cfg.train.seed + it)
+                tok = HashTokenizer(self.cfg.model.vocab_size)
+                for b in batch:
+                    b["instr_encoding"] = np.asarray(
+                        tok.encode(b["instruction"]), np.int32)
+            m = (self.train_step(batch, aug=True) if use_aug
+                 else self.train_step(batch))
             m["aug"] = float(use_aug)
             history.append(m)
             if callback and (it + 1) % log_every == 0:

@@ -298,11 +298,8 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for what
     the port does not run yet."""
-    train = args.mode == "train"
     mesh = args.dp not in (None, 1) or args.mp != 1 or args.world_size > 1
     checks = [
-        (train and (args.use_transpeaker or bool(args.speaker)),
-         "the back-translation speaker (--use_transpeaker, --speaker)", 6),
         (args.mode in ("train", "valid") and mesh,
          f"a device mesh (--dp {args.dp}, --mp {args.mp}, --world_size "
          f"{args.world_size})", 7),
@@ -567,8 +564,10 @@ def train(args, cfg, world, splits):
     """``--mode train``: ``Trainer.fit`` in intervals of ``--log_every``,
     with the train state saved after each; ``--aug`` batches (on the
     EnvEdit table, ``aug_feature_table``) alternate with the train split's
-    every ``--aug_times``, and the ``grad`` ability weights are refreshed
-    at iteration 0 and every ``--aw_update_iter``."""
+    every ``--aug_times`` (back-translated first by a speaker under
+    ``--use_transpeaker``, loaded from ``--speaker`` and saved as
+    ``speaker_latest.pt`` each interval), and the ``grad`` ability weights
+    are refreshed at iteration 0 and every ``--aw_update_iter``."""
     import signal
 
     from ..agent.navigator import Navigator
@@ -661,6 +660,30 @@ def train(args, cfg, world, splits):
             f"loaded intervention dicts from files for "
             f"{sorted(file_dicts)}", record)
 
+    # back-translation speaker for the aug alternation (--use_transpeaker;
+    # the reference's self-train path, agent.py:737-752)
+    speaker = speaker_tok = None
+    if args.use_transpeaker and splits.get("aug"):
+        from ..agent.speaker import Speaker, SpeakerTokenizer
+
+        speaker_tok = SpeakerTokenizer.build(splits["train"])
+        speaker = Speaker(
+            world, feat_dim=cfg.model.image_feat_size,
+            vocab_size=speaker_tok.vocab_size,
+            max_steps=cfg.env.max_action_len,
+            max_len=min(args.max_decode, 80), hidden=args.h_dim,
+            layers=args.speaker_layer_num, heads=args.speaker_head_num,
+            word_size=args.wemb,
+            feat_dropout=args.featdropout or cfg.train.feat_dropout,
+            device=args.device)
+        if args.speaker:
+            # a pretrained speaker (format transpeaker.py:322-344; the
+            # optimizer state only under --loadOptim, transpeaker.py:349-351)
+            ep = speaker.load(args.speaker, load_optim=args.load_optim)
+            write_to_record_file(
+                f"loaded speaker checkpoint {args.speaker} (epoch {ep})",
+                record)
+
     def refresh(it):
         refresh_intervention_dicts(args, cfg, trainer, world,
                                    splits["train"], it, record)
@@ -710,6 +733,7 @@ def train(args, cfg, world, splits):
             try:
                 hist = trainer.fit(splits["train"], interval, log_every=1,
                                    callback=_after_step, aug_items=aug_items,
+                                   speaker=speaker, speaker_tok=speaker_tok,
                                    aug_times=args.aug_times if aug_items
                                    else 0)
             finally:
@@ -748,6 +772,10 @@ def train(args, cfg, world, splits):
             trainer.save(os.path.join(args.ckpt_dir, "latest_dict.pt"),
                          save_optimizer=args.save_optimizer)
             trainer.save_state(args.ckpt_dir)
+            if speaker is not None:
+                # the speaker in the transpeaker container, for --speaker
+                speaker.save(it, os.path.join(args.ckpt_dir,
+                                              "speaker_latest.pt"))
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
         logger.close()

@@ -213,6 +213,16 @@ class ClsPrediction(nn.Module):
         return self.score(self.norm(F.gelu(self.dense(x))))[..., 0]
 
 
+def _bf16_softplus(w: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` of a bf16 value, ``max(w, 0) + log1p(exp(-|w|))``
+    with every op rounded to bf16 as XLA rounds it, in an f32 tensor (the
+    rounding is explicit, since ``Trainer``'s ``_PromoteBf16`` runs each op
+    in f32)."""
+    r = lambda x: x.to(torch.bfloat16).float()
+    w = r(w)
+    return r(torch.clamp(w, min=0) + r(torch.log1p(r(torch.exp(-w.abs())))))
+
+
 class DualScaleVLNBert(nn.Module):
     """The navigator.  ``dtype`` is the compute dtype (parameters are held
     in it); ``device`` defaults to ``"cuda"``."""
@@ -260,6 +270,9 @@ class DualScaleVLNBert(nn.Module):
         self.to(device=resolve_device(device), dtype=dtype)
         self.eval()
         self._stacked = None            # the fused trunk's weights (key, dict)
+        # set while the trainer swaps bf16 copies in for the masters
+        # (``Trainer._bf16_weights``), where ``.dtype`` may read f32
+        self.bf16_weights = False
 
     def _f(self, x):
         return x.to(self.dtype)
@@ -303,9 +316,12 @@ class DualScaleVLNBert(nn.Module):
 
     def kd_ability_weights(self):
         """softplus of the learned per-ability weights, in the order
-        [txt, img, local, global, predict] (vlnbert.py:580-588)."""
-        return torch.stack([F.softplus(getattr(self, f"kdl_{n}_weight"))
-                            for n in ABILITY_WEIGHTS])
+        [txt, img, local, global, predict] (vlnbert.py:580-588).  On bf16
+        weight copies (``bf16_weights``) it is JAX's softplus of a bf16
+        parameter (``_bf16_softplus``)."""
+        ws = [getattr(self, f"kdl_{n}_weight") for n in ABILITY_WEIGHTS]
+        act = _bf16_softplus if self.bf16_weights else F.softplus
+        return torch.stack([act(w) for w in ws])
 
     def text_cross_kv(self, txt_embeds):
         """Instruction K/V of every cross layer whose language input is
