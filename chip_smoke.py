@@ -60,11 +60,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    parameters and no attention-kernel launch (the JAX train step runs no
    Pallas kernel); then one step with ``remat`` (its peak memory), and one
    under ``torch.profiler`` (device time, idle share, top 10 kernels), the
-   dtype casts counted in the warm-up; the same four steps with
+   dtype casts counted in the warm-up; a warm-up and one timed step with
    autocast's weight cache on, as before the repair (the repair's cost in
    casts and wall);
    then the training options on the same trainer, each one warm-up and
-   three timed steps held to the same checks (ms, peak memory):
+   one timed step (``OPTION_STEPS``) held to the same checks (ms, peak
+   memory):
    ``grads_dtype="bfloat16"``, ``remat_policy`` ``dots`` and
    ``dots_all``, ``fuse_rollouts`` (and a profiled fused step: launches,
    idle share); one ``update_ability_grads`` on the 16 items; and one A2C
@@ -187,7 +188,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     distillation, with an aug split and ``--use_transpeaker``, for two
     iterations, then a ``--speaker
     speaker_latest.pt --loadOptim`` run that writes the ``loaded speaker
-    checkpoint`` record line.
+    checkpoint`` record line;
+16. the mesh (``parallel``): (a) one process over NCCL at world size 1,
+    through ``make_mesh``: ``Navigator.use_mesh`` decodes phase 4's items
+    in one wave (216 launches, all tensor-core, phase 4's navigator's
+    trajectories), ``Trainer.use_mesh`` takes one default train step at
+    ``bench.py --train``'s shape beside a trainer without a mesh (the same
+    batch and seed; the loss within 1e-4 relative, both walls),
+    ``PretrainTrainer.use_mesh`` one sap step (20 SIMT launches); (b) two
+    processes of this script (``--mesh-rank``) on the one card over gloo,
+    which carries CUDA tensors where NCCL refuses two ranks on one device:
+    a dp 2 and then an mp 2 wave of the main path's model at depth 2/1/1
+    in f32, 32 items, each rank's trajectories equal to one process's and
+    its metrics within 1e-5, every mp packed call (one head a rank) held
+    against the plain version;
+17. long context (``ops/ema.py``, ``models/mega.py``, ``models/luna.py``,
+    ``models/lra.py``) and the rest of ``utils/``: the golden fixture
+    ``tests/fixtures/golden_long_context_23.npz`` (JAX's EMA scan, Mega
+    block, Luna layer, the LRA classifier's logits with each trunk and
+    three ``lra_train_step``s, on weights drawn from its seed) to 1e-4;
+    one LRA Text train step per trunk (4,096 tokens, batch 32, ``lra.py``'s
+    widths; ms, peak memory, idle share; 0 attention launches, each step
+    under ``NanGuard``); ``utils.profiling.trace`` around a wave names the
+    packed kernel, ``device_memory_stats`` gives the card's figures.
 
 Then the script's wall, the per-kernel summary line, the card line, and
 the result line.
@@ -231,6 +254,9 @@ MAIN_BATCH, MAIN_T = 256, 15
 STREAM_ITEMS = 4 * MAIN_BATCH
 TEACHER = (16, 12)          # MAGIC teacher: B 16 (bench.py's training), H 12
 TRAIN_BATCH, TRAIN_STEPS = 16, 3
+# timed steps of each training option after its warm-up (the default
+# step takes TRAIN_STEPS); one keeps the script within its time limit
+OPTION_STEPS = 1
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_train_7.npz")
 SERVE_NODES = 64                 # bench.py --serve: one 64-node scan
 SERVE_DECISIONS = 200            # decisions measured in sessions
@@ -1297,7 +1323,7 @@ def phase_training(card, world):
     t0 = time.perf_counter()
     tr.autocast = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
     cached = _timed_steps(step, models, "training, autocast cache on",
-                          count_casts=True)
+                          steps=OPTION_STEPS, count_casts=True)
     del tr.autocast
     launches["autocast_cache"] = cached["kernels"]
     emit({"phase": "training_autocast_cache", **cached,
@@ -1313,7 +1339,8 @@ def phase_training(card, world):
             cfg.train, **train))
         tr.rollout.remat_ops.clear()
         t0 = time.perf_counter()
-        variants[name] = _timed_steps(step, models, f"training {name}")
+        variants[name] = _timed_steps(step, models, f"training {name}",
+                                      steps=OPTION_STEPS)
         parts_s[name] = time.perf_counter() - t0
         launches[name] = variants[name]["kernels"]
         if tr.rollout.remat_ops:
@@ -1321,7 +1348,8 @@ def phase_training(card, world):
             # whether the policy saved them
             policy = REMAT_SAVED[train["remat_policy"]]
             variants[name]["remat_products_per_step"] = {
-                str(op): {"n": n / (TRAIN_STEPS + 1), "saved": op in policy}
+                str(op): {"n": n / (OPTION_STEPS + 1),
+                          "saved": op in policy}
                 for op, n in tr.rollout.remat_ops.items()
                 if any(k in str(op) for k in ("mm", "matmul", "linear",
                                               "einsum", "conv", "dot"))}
@@ -3861,6 +3889,483 @@ def phase_speaker(card, world, items, cli):
     return launches
 
 
+# ---- phase 17: long context (ROADMAP Queue 1 item 8) ------------------------
+
+# the golden long-context fixture: the port draws every weight from
+# ``seed`` with numpy (JAX's initialisers' distributions, models/_init.py),
+# JAX's values on the same weights (carried by flax name) and inputs are
+# kept; tests/test_torch_long_context.py rewrites it
+GOLDEN_LONG_CONTEXT_SPEC = {
+    "seed": 23,
+    "ema": {"b": 2, "l": 37, "d": 8, "n": 4},
+    "mega": {"hidden": 32, "chunk_size": 8, "ema_ndim": 4, "b": 2, "l": 20},
+    "luna": {"hidden": 32, "heads": 2, "intermediate": 64, "proj_len": 8,
+             "b": 2, "l": 20},
+    "lra": {"vocab": 16, "classes": 2, "hidden": 32, "layers": 1,
+            "heads": 2, "chunk_size": 24, "proj_len": 8, "b": 4, "l": 96,
+            "lr": 3e-3, "steps": 3},
+}
+LONG_CONTEXT_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                    "golden_long_context_23.npz")
+LRA_TRUNKS = ("mega", "luna", "dense")
+# LRA Text (Tay et al. 2021, Long Range Arena): 4,096 byte tokens, 2
+# classes; models/lra.py's default widths; batch 32
+LRA_TEXT = {"vocab": 256, "classes": 2, "l": 4096, "b": 32}
+LONG_CONTEXT_TOL = 1e-4         # f32, relative to each output's scale
+
+
+def long_context_inputs(spec=GOLDEN_LONG_CONTEXT_SPEC) -> dict:
+    """The golden inputs, from the spec's seed (numpy)."""
+    rng = np.random.default_rng(spec["seed"])
+    e, m, lu, lr = spec["ema"], spec["mega"], spec["luna"], spec["lra"]
+    mask = lambda b, l: np.arange(l)[None] < np.array(
+        [l] + [l - 5 - i for i in range(b - 1)])[:, None]
+    return {
+        "ema_x": rng.standard_normal((e["b"], e["l"], e["d"])).astype(
+            np.float32),
+        "ema_alpha": rng.uniform(0.1, 0.9, (e["d"], e["n"])).astype(
+            np.float32),
+        "ema_delta": rng.uniform(0.1, 0.9, (e["d"], e["n"])).astype(
+            np.float32),
+        "ema_beta": rng.standard_normal((e["d"], e["n"])).astype(np.float32),
+        "ema_eta": rng.standard_normal((e["d"], e["n"])).astype(np.float32),
+        "ema_h0": rng.standard_normal((e["b"], e["d"], e["n"])).astype(
+            np.float32),
+        "mega_x": rng.standard_normal((m["b"], m["l"], m["hidden"])).astype(
+            np.float32),
+        "mega_mask": mask(m["b"], m["l"]),
+        "luna_x": rng.standard_normal((lu["b"], lu["l"], lu["hidden"])
+                                      ).astype(np.float32),
+        "luna_p": rng.standard_normal((lu["b"], lu["proj_len"],
+                                       lu["hidden"])).astype(np.float32),
+        "luna_mask": mask(lu["b"], lu["l"]),
+        "lra_tokens": rng.integers(0, lr["vocab"], (lr["b"], lr["l"])),
+        "lra_mask": mask(lr["b"], lr["l"]),
+        "lra_labels": rng.integers(0, lr["classes"], lr["b"]),
+    }
+
+
+def long_context_models(device="cuda", spec=GOLDEN_LONG_CONTEXT_SPEC):
+    """The port's golden modules, weights from the spec's seed: a Mega
+    block, a Luna layer and the LRA classifier with each trunk."""
+    from vln_magic_tpu_torch.models._init import flax_default_init
+    from vln_magic_tpu_torch.models.lra import LRAClassifier
+    from vln_magic_tpu_torch.models.luna import LunaEncoderLayer
+    from vln_magic_tpu_torch.models.mega import MovingAverageGatedAttention
+
+    m, lu, lr = spec["mega"], spec["luna"], spec["lra"]
+    rng = np.random.default_rng(spec["seed"])
+    mega = MovingAverageGatedAttention(m["hidden"], chunk_size=m["chunk_size"],
+                                       ema_ndim=m["ema_ndim"])
+    mega.init_weights(rng)
+    luna = LunaEncoderLayer(lu["hidden"], lu["heads"], lu["intermediate"],
+                            dropout=0.0)
+    flax_default_init(luna, rng)
+    models = {"mega": mega.to(device), "luna": luna.to(device)}
+    for i, trunk in enumerate(LRA_TRUNKS):
+        models[f"lra_{trunk}"] = LRAClassifier(
+            lr["vocab"], lr["classes"], lr["hidden"], lr["layers"],
+            lr["heads"], trunk, chunk_size=lr["chunk_size"],
+            proj_len=lr["proj_len"], seed=spec["seed"] + i, device=device)
+    return models
+
+
+def long_context_outputs(models, device="cuda",
+                         spec=GOLDEN_LONG_CONTEXT_SPEC) -> dict:
+    """The port's golden values: the EMA scan with and without h0, the
+    Mega block and Luna layer (masked), each LRA classifier's logits, then
+    ``spec["lra"]["steps"]`` ``lra_train_step``s under Adam (losses, the
+    logits after)."""
+    from vln_magic_tpu_torch.models.lra import lra_train_step
+    from vln_magic_tpu_torch.ops.ema import damped_ema_scan
+
+    x = {k: torch.as_tensor(v, device=device)
+         for k, v in long_context_inputs(spec).items()}
+    host = lambda t: t.detach().float().cpu().numpy()
+    out = {}
+    ema = [x[f"ema_{k}"] for k in ("x", "alpha", "delta", "beta", "eta")]
+    with torch.no_grad():
+        out["ema_y"], out["ema_h"] = map(host, damped_ema_scan(*ema))
+        out["ema_y_h0"], out["ema_h_h0"] = map(host, damped_ema_scan(
+            *ema, x["ema_h0"]))
+        out["mega_y"] = host(models["mega"](x["mega_x"], x["mega_mask"]))
+        out["luna_x"], out["luna_p"] = map(host, models["luna"](
+            x["luna_x"], x["luna_p"], x["luna_mask"]))
+    for trunk in LRA_TRUNKS:
+        model = models[f"lra_{trunk}"]
+        with torch.no_grad():
+            out[f"lra_{trunk}_logits"] = host(model(x["lra_tokens"],
+                                                    x["lra_mask"]))
+        step = lra_train_step(model, torch.optim.Adam(
+            model.parameters(), lr=spec["lra"]["lr"]))
+        losses = [step(x["lra_tokens"], x["lra_mask"], x["lra_labels"])[0]
+                  for _ in range(spec["lra"]["steps"])]
+        out[f"lra_{trunk}_losses"] = host(torch.stack(losses))
+        with torch.no_grad():
+            out[f"lra_{trunk}_logits_after"] = host(model(x["lra_tokens"],
+                                                          x["lra_mask"]))
+    return out
+
+
+def check_long_context(got: dict, want: dict,
+                       tol=LONG_CONTEXT_TOL) -> dict:
+    """Each golden value's largest error relative to its scale; raises
+    past ``tol``."""
+    errs = {}
+    for k, g in got.items():
+        w = np.asarray(want[k], np.float32)
+        if g.shape != w.shape:
+            raise AssertionError(f"long context {k}: shape {g.shape} != "
+                                 f"{w.shape}")
+        errs[k] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1.0))
+        if not np.isfinite(g).all() or errs[k] > tol:
+            raise AssertionError(f"long context {k}: error {errs[k]:.3g} "
+                                 f"past {tol}")
+    return errs
+
+
+def golden_long_context(device="cuda") -> dict:
+    """``LONG_CONTEXT_FIXTURE`` through the port: ``check_long_context``'s
+    errors."""
+    fx = dict(np.load(LONG_CONTEXT_FIXTURE))
+    if json.loads(str(fx.pop("spec"))) != json.loads(json.dumps(
+            GOLDEN_LONG_CONTEXT_SPEC)):
+        raise AssertionError("golden long context: the fixture's spec is "
+                             "not GOLDEN_LONG_CONTEXT_SPEC")
+    got = long_context_outputs(long_context_models(device), device)
+    return check_long_context(got, fx)
+
+
+# ---- phase 16: the mesh (ROADMAP Queue 1 item 7) -----------------------------
+
+# phase 16 (b): two ranks on the one card, at a reduced depth and in f32
+# (the kernel's SIMT route), so that the two-rank runs equal one process
+# at the CPU tests' tolerances
+MESH_DEPTH = {"num_l_layers": 2, "num_pano_layers": 1, "num_x_layers": 1}
+MESH_ITEMS = 32
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun_env(rank: int, world: int, port: int, local_rank: int = 0):
+    """The environment torchrun gives a rank (``parallel.init_distributed``
+    reads it)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(local_rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+
+
+def mesh_reduced_path():
+    """Phase 16 (b)'s navigator configuration, world and items: the main
+    path's model at ``MESH_DEPTH``, f32, one 64-node scan, 32 items of 200
+    tokens."""
+    from vln_magic_tpu_torch.env import make_synthetic_world
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+
+    cfg = main_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **MESH_DEPTH),
+        train=dataclasses.replace(cfg.train, batch_size=MESH_ITEMS,
+                                  compute_dtype="float32"))
+    world = make_synthetic_world(num_scans=1, nodes_per_scan=64,
+                                 feat_dim=768, seed=0)
+    rng = np.random.default_rng(4)
+    items = make_synthetic_instructions(world, MESH_ITEMS, rng, min_path=4,
+                                        max_path=7)
+    for it in items:
+        it["instr_encoding"] = rng.integers(4, 1000, 200).astype(np.int32)
+    return cfg, world, items
+
+
+def mesh_rank(case: str, rank: int, port: int, out_dir: str):
+    """One rank of phase 16 (b) (``chip_smoke.py --mesh-rank``): a gloo
+    group of two processes on the one card (NCCL refuses two ranks on one
+    device), a dp 2 or mp 2 mesh on cuda:0, one wave of the reduced
+    navigator; under mp every packed call (at the rank's heads) is held
+    against the plain version.  Writes ``<out_dir>/<case>_<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    from vln_magic_tpu_torch import parallel
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+
+    _torchrun_env(rank, 2, port)
+    parallel.init_distributed("cuda", backend="gloo")
+    try:
+        mesh = parallel.make_mesh(mp=2 if case == "mp2" else 1,
+                                  device="cuda:0", backend="gloo")
+        cfg, world, items = mesh_reduced_path()
+        nav = Navigator(cfg, world, seed=0, device="cuda").use_mesh(mesh)
+        nav.evaluate(items)                         # warm-up
+        run = lambda: timed_evaluate(nav, items)
+        if case == "mp2":
+            (avg, preds, wall, launches), calls = _captured_packed(run)
+            rows = _check_calls(calls, F32_TOL, tensor_cores=False)
+        else:
+            avg, preds, wall, launches = run()
+            rows = []
+        with open(os.path.join(out_dir, f"{case}_{rank}.json"), "w") as f:
+            json.dump({"traj": [p["trajectory"] for p in preds], "avg": avg,
+                       "wall_s": wall, "launches": launches,
+                       "checked": rows,
+                       "heads": nav.model.lang_encoder.layer_0.attention.h},
+                      f)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _mesh_pair(case: str) -> list[dict]:
+    """Phase 16 (b)'s two ranks of ``case`` as processes of this script:
+    their results by rank."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out:
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--mesh-rank", case, str(r), str(port),
+                                   out]) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0, 0]:
+            raise AssertionError(f"mesh {case}: the ranks exited {rcs}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(out, f"{case}_{r}.json")) as f:
+                res.append(json.load(f))
+    return res
+
+
+def phase_mesh(card, nav, items, world):
+    """Phase 16: (a) one process over NCCL at world size 1 through
+    ``make_mesh``: ``Navigator.use_mesh`` runs a wave at the main path's
+    shape (the trajectories of phase 4's navigator, 216 launches),
+    ``Trainer.use_mesh`` a default train step at ``bench.py --train``'s
+    shape beside the step without a mesh (the same batch and seed),
+    ``PretrainTrainer.use_mesh`` one sap step; (b) two processes on the
+    one card, dp 2 then mp 2, each wave equal to one process's."""
+    import torch.distributed as dist
+
+    from vln_magic_tpu_torch import parallel
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.agent.trainer import Trainer
+    from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
+    from vln_magic_tpu_torch.pretrain.loader import ItemSampler, batch_to_device
+    from vln_magic_tpu_torch.pretrain.trainer import PretrainTrainer
+
+    t_phase = time.perf_counter()
+    (ref_avg, _), ref_preds = nav.evaluate(items)
+    _torchrun_env(0, 1, _free_port())
+    parallel.init_distributed("cuda")
+    try:
+        mesh = parallel.make_mesh(mp=1)
+        if (mesh.backend, dist.get_backend()) != ("nccl", "nccl"):
+            raise AssertionError(f"phase 16 (a) ran on {mesh.backend}")
+        mnav = Navigator(main_config(), world, seed=0,
+                         device="cuda").use_mesh(mesh)
+        mnav.evaluate(items)
+        avg, preds, wall, launches = timed_evaluate(mnav, items)
+        if launches["packed_attention"] != LAUNCHES_PER_WAVE or \
+                launches["fused_attention"]:
+            raise AssertionError(f"mesh wave: {launches}")
+        check_tensor_cores("mesh wave", launches)
+        if [p["trajectory"] for p in preds] != \
+                [p["trajectory"] for p in ref_preds]:
+            raise AssertionError("mesh wave: trajectories differ from "
+                                 "phase 4's navigator")
+        del mnav
+        emit({"phase": "mesh_wave", "mesh": repr(mesh), "wall_s": wall,
+              "kernels": launches, "metrics": avg, "card": card})
+
+        cfg = train_config()
+        rng = np.random.default_rng(2)
+        t_items = make_synthetic_instructions(world, TRAIN_BATCH, rng,
+                                              min_path=4, max_path=7)
+        for it in t_items:
+            it["instr_encoding"] = rng.integers(4, 1000, 200).astype(
+                np.int32)
+        steps = {}
+        for name in ("plain", "mesh"):
+            tr = Trainer(cfg, world, device="cuda")
+            if name == "mesh":
+                tr.use_mesh(mesh)
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(t_items)
+            torch.cuda.synchronize()
+            steps[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "metrics": m, "kernels": _launches()}
+            del tr
+        _check_steps("mesh train step", [steps["mesh"]["metrics"]],
+                     steps["mesh"]["kernels"])
+        rel = abs(steps["mesh"]["metrics"]["loss"]
+                  - steps["plain"]["metrics"]["loss"]) / max(
+            abs(steps["plain"]["metrics"]["loss"]), 1e-12)
+        if rel > 1e-4:
+            raise AssertionError(f"mesh train step: loss {rel:.3g} off the "
+                                 f"step without a mesh")
+        emit({"phase": "mesh_train_step", "batch": TRAIN_BATCH,
+              "loss_rel_err": rel, **{f"{k}_ms": v["ms"]
+                                      for k, v in steps.items()},
+              "metrics": steps["mesh"]["metrics"],
+              "kernels": steps["mesh"]["kernels"], "card": card})
+
+        pcfg = pretrain_config()
+        pt = PretrainTrainer(pcfg, world, device="cuda").use_mesh(mesh)
+        rng = np.random.default_rng(3)
+        p_items = make_synthetic_instructions(world, PRETRAIN_BATCH, rng,
+                                              min_path=4, max_path=7,
+                                              vocab_size=pcfg.model.vocab_size)
+        for it in p_items:
+            it["instr_encoding"] = rng.integers(4, 1000, 200).astype(
+                np.int32)
+        batch = batch_to_device(pt._fill("sap", pt.builder.sap_batch(
+            ItemSampler(p_items, PRETRAIN_BATCH, 0).next_batch())), "cuda")
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm = pt.train_step("sap", batch)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        p_launches = _simt_launches("mesh pretraining sap",
+                                    PRETRAIN_LAUNCHES["sap"])
+        _finite("mesh pretraining sap", [pm])
+        del pt
+        emit({"phase": "mesh_pretrain_step", "task": "sap",
+              "batch": PRETRAIN_BATCH, "ms": p_ms, "metrics": pm,
+              "kernels": {"packed_attention": p_launches}, "card": card})
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card over gloo, against one process
+    cfg, r_world, r_items = mesh_reduced_path()
+    one = Navigator(cfg, r_world, seed=0, device="cuda")
+    (one_avg, _), one_preds = one.evaluate(r_items)
+    del one
+    pair = {}
+    for case in ("dp2", "mp2"):
+        ranks = _mesh_pair(case)
+        for r in ranks:
+            if r["launches"]["fused_attention"] or \
+                    not r["launches"]["packed_attention"]:
+                raise AssertionError(f"mesh {case}: {r['launches']}")
+            if r["traj"] != [p["trajectory"] for p in one_preds]:
+                raise AssertionError(f"mesh {case}: trajectories differ "
+                                     f"from one process")
+            for k, v in one_avg.items():
+                if not math.isclose(r["avg"][k], v, rel_tol=1e-5,
+                                    abs_tol=1e-9):
+                    raise AssertionError(f"mesh {case}: {k} {r['avg'][k]} "
+                                         f"against one process's {v}")
+        pair[case] = ranks[0]["launches"]["packed_attention"]
+        emit({"phase": f"mesh_{case}_wave", "ranks": 2, "backend": "gloo",
+              "heads_per_rank": ranks[0]["heads"],
+              "wall_s": [r["wall_s"] for r in ranks],
+              "kernels": [r["launches"] for r in ranks],
+              "checked": ranks[0]["checked"] + ranks[1]["checked"],
+              "card": card})
+    emit({"phase": "mesh", "wall_s": time.perf_counter() - t_phase,
+          "card": card})
+    return {"mesh_wave": launches["packed_attention"],
+            "mesh_train_step": steps["mesh"]["kernels"],
+            "mesh_pretrain_step": p_launches,
+            "mesh_dp2_wave": pair["dp2"], "mesh_mp2_wave": pair["mp2"]}
+
+
+def phase_long_context(card, nav, items):
+    """Phase 17: the golden long-context fixture on the card (the EMA
+    scan, a Mega block, a Luna layer, the LRA classifier with each trunk:
+    logits and ``lra_train_step``s); one LRA train step per trunk at LRA
+    Text's shape (ms, peak memory, idle share; 0 attention launches); then
+    the utilities on the card: ``trace`` around a wave names the packed
+    kernel, ``device_memory_stats`` gives the card's figures, ``NanGuard``
+    wraps a train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_magic_tpu_torch.models.lra import LRAClassifier, lra_train_step
+    from vln_magic_tpu_torch.utils.debug import NanGuard
+    from vln_magic_tpu_torch.utils.profiling import (device_memory_stats,
+                                                     trace)
+
+    t_phase = time.perf_counter()
+    errs = golden_long_context("cuda")
+    emit({"phase": "long_context_golden", "max_rel_err": errs,
+          "tol": LONG_CONTEXT_TOL, "card": card})
+
+    rng = np.random.default_rng(5)
+    L, b = LRA_TEXT["l"], LRA_TEXT["b"]
+    tokens = torch.as_tensor(rng.integers(0, LRA_TEXT["vocab"], (b, L)),
+                             device="cuda")
+    mask = torch.ones((b, L), dtype=torch.bool, device="cuda")
+    labels = torch.as_tensor(rng.integers(0, 2, b), device="cuda")
+    launches = {}
+    for trunk in LRA_TRUNKS:
+        model = LRAClassifier(LRA_TEXT["vocab"], LRA_TEXT["classes"],
+                              encoder=trunk, device="cuda")
+        step = NanGuard()(lra_train_step(model, torch.optim.Adam(
+            model.parameters(), lr=1e-3)))
+        step(tokens, mask, labels)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        loss, acc = step(tokens, mask, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches[trunk] = _launches()
+        if any(launches[trunk].values()):
+            raise AssertionError(f"LRA {trunk}: attention kernels "
+                                 f"launched: {launches[trunk]}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(tokens, mask, labels)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "lra_text_step", "trunk": trunk, "batch": b,
+              "tokens": L, "ms": ms, "peak_memory_gb": peak,
+              "loss": float(loss), "acc": float(acc),
+              "params": sum(p.numel() for p in model.parameters()),
+              "profiled_ms": prof_ms,
+              **device_breakdown(prof, prof_ms, top=5), "card": card})
+        del model, step, prof
+        torch.cuda.empty_cache()
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
+        with trace(log_dir):
+            nav.evaluate(items[:16], batch_size=16)
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    packed = sorted(n for n in names if "packed_attention" in n)
+    if not packed:
+        raise AssertionError("the trace of a wave names no packed kernel")
+    stats = device_memory_stats()
+    if not stats["cuda:0"]["bytes_limit"] > 0 or \
+            stats["cuda:0"]["peak_bytes_in_use"] <= 0:
+        raise AssertionError(f"device_memory_stats: {stats}")
+    emit({"phase": "utils_on_card", "trace_packed_kernels": packed,
+          "device_memory_stats": stats, "card": card})
+    emit({"phase": "long_context", "wall_s": time.perf_counter() - t_phase,
+          "card": card})
+    return {f"lra_text_{k}": v["packed_attention"]
+            for k, v in launches.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3892,6 +4397,8 @@ def main():
                     "fused_attention": v["fused_attention"]}
                 for k, v in cli14.items()})
     speaker = phase_speaker(card, nav.world, items, speaker_cli)
+    mesh = phase_mesh(card, nav, items, nav.world)
+    long_context = phase_long_context(card, nav, items)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_start,
           "card": card})
     cli_note = ("the CLI runs no kernel, as JAX's does not: no flag sets "
@@ -3941,7 +4448,15 @@ def main():
                              **{k: v["packed_attention"]
                                 for k, v in cli.items()},
                              **{k: v["packed_attention"]
-                                for k, v in speaker.items()}},
+                                for k, v in speaker.items()},
+                             "mesh_wave": mesh["mesh_wave"],
+                             "mesh_train_step":
+                                 mesh["mesh_train_step"]["packed_attention"],
+                             "mesh_pretrain_step":
+                                 mesh["mesh_pretrain_step"],
+                             "mesh_dp2_wave": mesh["mesh_dp2_wave"],
+                             "mesh_mp2_wave": mesh["mesh_mp2_wave"],
+                             **long_context},
         "route_by_path": {"wave": "tensor_core", "stream": "tensor_core",
                           "parity": "tensor_core", "golden_f32": "simt",
                           "serve": "tensor_core", "fleet": "tensor_core",
@@ -3955,7 +4470,13 @@ def main():
                           "interventions_golden_f32": "simt",
                           "ensemble_wave": "tensor_core",
                           **{k: "none" for k in cli},
-                          **{k: "none" for k in speaker}},
+                          **{k: "none" for k in speaker},
+                          "mesh_wave": "tensor_core",
+                          "mesh_train_step": "none",
+                          "mesh_pretrain_step": "simt",
+                          "mesh_dp2_wave": "simt",
+                          "mesh_mp2_wave": "simt (one head a rank)",
+                          **{k: "none" for k in long_context}},
         "cli_note": cli_note,
         "per": "one wave of the main path (216 launches, bf16, tensor-core "
                "route)"}, {
@@ -3972,7 +4493,9 @@ def main():
         "tc_launches": fused["tc_launches"],
         "route_by_path": {"entry_point": "tensor_core", "f32": "simt",
                           **{k: "none" for k in cli},
-                          **{k: "none" for k in speaker}},
+                          **{k: "none" for k in speaker},
+                          **{k: "none" for k in mesh},
+                          **{k: "none" for k in long_context}},
         "launches_by_path": {"entry_point": fused["launches"],
                              **{"train_step" if k == "default"
                                 else f"train_{k}": v["fused_attention"]
@@ -3982,7 +4505,10 @@ def main():
                              **{k: v["fused_attention"]
                                 for k, v in cli.items()},
                              **{k: v["fused_attention"]
-                                for k, v in speaker.items()}},
+                                for k, v in speaker.items()},
+                             # phases 16-17 raise on any fused launch
+                             **{k: 0 for k in mesh},
+                             **{k: 0 for k in long_context}},
         "cli_note": cli_note,
         "per": "its entry point once at each of the six MAGIC-S path "
                "shapes (6 launches, bf16, tensor-core route); no model path "
@@ -3994,4 +4520,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        # one rank of phase 16 (b), started by _mesh_pair
+        mesh_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
+    else:
+        main()

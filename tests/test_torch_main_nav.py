@@ -481,22 +481,7 @@ def test_sigterm_saves_after_the_step_in_flight(tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is not None
 
 
-# ---- refusals -------------------------------------------------------------
-
-REFUSED = {
-    "dp": (["--mode", "valid", "--dp", "2"], 7),
-    "mp": (["--mode", "train", "--mp", "2"], 7),
-    "world_size": (["--mode", "valid", "--world_size", "4"], 7),
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_flags_raise(tmp_path, name):
-    flags, item = REFUSED[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        cli.main(TINY + flags + out_args(tmp_path, name) + CPU)
-
+# ---- the default device ---------------------------------------------------
 
 @pytest.mark.parametrize("mode", ["valid", "train", "serve"])
 def test_default_device_needs_a_gpu(tmp_path, mode):

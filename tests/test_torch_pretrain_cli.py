@@ -119,12 +119,6 @@ def test_two_intervals_write_checkpoints_and_resume(tmp_path):
                for k, v in tr.model.state_dict().items())
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--mp", "2"]])
-def test_mesh_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--output_dir", str(tmp_path), *flags])
-
-
 def test_default_device_needs_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")

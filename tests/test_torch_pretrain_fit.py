@@ -218,9 +218,6 @@ def test_dropout_draws_from_the_trainers_generator(jax_run, port_world):
 
 
 def test_mesh_and_default_device(jax_run, port_world):
-    tr = port_trainer(jax_run, port_world)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.use_mesh(None)
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -380,12 +380,6 @@ def test_load_trainer_params_carries_all_three_trees(jax_run, port_world):
         load_trainer_params(tr, trees(a, "params"), trees(a, "t_params"))
 
 
-def test_unported_trainer_entry_points_raise(jax_run, port_world):
-    tr = port_trainer_like(jax_run, port_world)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.use_mesh(None)
-
-
 def test_default_device_needs_a_gpu(port_world):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")

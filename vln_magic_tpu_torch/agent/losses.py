@@ -5,13 +5,18 @@ Port of ``vln_magic_tpu/agent/losses.py``.  All losses take
 ``t_sample_weights`` (MKTD per-sample weights from the teacher's CE) and
 ``loss_type`` ('sum' | 'mean').  ``kd_loss`` keeps torch ``KLDivLoss``'s
 conventions, as the reference does: 'sum' sums every element; 'mean'
-divides by the element count (the legacy 'mean', not 'batchmean').
+divides by the element count (the legacy 'mean', not 'batchmean').  On
+a mesh (``parallel``) each rank holds its dp rows: a 'mean' is its share
+of the global mean, and MKTD's min-max normalisation spans every rank's
+rows.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import dp_max, dp_min, dp_size
 
 NEG_INF_CLAMP = -1e6
 
@@ -23,7 +28,8 @@ def _weight_and_reduce(per_sample, t_sample_weights, loss_type):
     if loss_type == "sum":
         return per_sample.sum()
     if loss_type == "mean":
-        return per_sample.mean()
+        # on a mesh, this rank's share of the mean over the global batch
+        return per_sample.mean() / dp_size()
     raise ValueError(f"loss_type {loss_type}")
 
 
@@ -93,7 +99,7 @@ def exponential_decay(t_sample_losses, decay_rate=0.1):
 
 def invert_normalized_losses(t_sample_losses, eps=1e-8, **_):
     """1 - min-max normalised loss."""
-    lo, hi = t_sample_losses.min(), t_sample_losses.max()
+    lo, hi = dp_min(t_sample_losses), dp_max(t_sample_losses)
     return 1.0 - (t_sample_losses - lo) / (hi - lo).clamp(min=eps)
 
 

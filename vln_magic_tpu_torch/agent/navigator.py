@@ -1,8 +1,10 @@
 """Greedy-decode navigation agent (port of
-``vln_magic_tpu/agent/navigator.py``): waves, observed-graph parity and
-streaming evaluation."""
+``vln_magic_tpu/agent/navigator.py``): waves, observed-graph parity,
+streaming evaluation and evaluation over a device mesh (``use_mesh``)."""
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -10,6 +12,7 @@ import torch
 from ..config import MagicConfig
 from ..env.world import World
 from ..models.vlnbert import DualScaleVLNBert
+from ..parallel.sharding import all_gather, all_reduce_tensors, shard_params
 from ..utils.device import resolve_device
 from ..utils.weights import init_params, load_flax_params
 from .evaluator import (Evaluator, build_trajectories,
@@ -75,16 +78,46 @@ class Navigator:
             load_flax_params(self.model, params)
         self.rollout = Rollout(self.tables, cfg.env, self.model)
         self._streams = {}
+        self.mesh = None
+
+    def use_mesh(self, mesh):
+        """Evaluate over a dp x mp mesh (JAX ``use_mesh``; the reference's
+        per-rank env slices + all_gather, env.py:126-134,
+        main_nav.py:606-607): the model sharded in place
+        (``parallel.shard_params``), every wave's rows split over dp, each
+        rank decoding its rows and the decodes gathered, so every rank
+        returns one process's trajectories and metrics.  Streaming
+        evaluation stays off, as JAX's.  The eval batch size must divide
+        by dp."""
+        dp = mesh.shape.get("dp", 1)
+        if self.cfg.train.batch_size % dp != 0:
+            raise ValueError(
+                f"eval batch_size {self.cfg.train.batch_size} not "
+                f"divisible by dp={dp}")
+        self.mesh = mesh
+        shard_params(self.model, mesh)
+        return self
 
     def run_items(self, items, feedback="argmax", ensemble_n=1, zdicts=None):
+        """Decode ``items`` as one wave: (the episode state, the rollout's
+        aux).  On a mesh the state is this rank's dp rows, and the aux,
+        with the rows' ``stop_scores``, is gathered whole."""
         txt_ids, txt_masks = pad_instructions(items, self.cfg.env.max_instr_len)
+        mesh = self.mesh
+        if mesh is not None:
+            rows = mesh.rows(len(items))
+            items, txt_ids, txt_masks = (items[rows], txt_ids[rows],
+                                         txt_masks[rows])
         state = episodes_from_items(
             self.tables, items, self.cfg.model.hidden_size,
             observed_parity=self.cfg.env.observed_graph_parity)
-        aux = self.rollout.run(
-            state, torch.from_numpy(txt_ids).to(self.device),
-            torch.from_numpy(txt_masks).to(self.device), feedback,
-            ensemble_n=ensemble_n, zdicts=zdicts)
+        with (mesh.active() if mesh is not None else nullcontext()):
+            aux = self.rollout.run(
+                state, torch.from_numpy(txt_ids).to(self.device),
+                torch.from_numpy(txt_masks).to(self.device), feedback,
+                ensemble_n=ensemble_n, zdicts=zdicts)
+        if mesh is not None:
+            aux = _gather_aux(aux, state, mesh)
         return state, aux
 
     def evaluate(self, items, feedback="argmax", batch_size=None,
@@ -111,14 +144,16 @@ class Navigator:
         bs = batch_size or self.cfg.train.batch_size
         parity = self.cfg.env.observed_graph_parity
         eligible = (feedback == "argmax" and ensemble_n == 1
-                    and not detailed_output and not parity)
+                    and not detailed_output and not parity
+                    and self.mesh is None)
         if stream is None:
             stream = eligible and len(items) > bs
         if stream:
             if not eligible:
                 raise ValueError("stream=True needs argmax feedback, "
-                                 "ensemble_n == 1, no detailed_output and "
-                                 "the full-table (non-parity) path")
+                                 "ensemble_n == 1, no detailed_output, no "
+                                 "mesh and the full-table (non-parity) "
+                                 "path")
             return self._evaluate_stream(items, bs, zdicts)
         preds = []
         gmap_overflow = semantic_steps = 0
@@ -142,7 +177,9 @@ class Navigator:
                     host["final_cur"])
             chunk_preds = chunk_preds[:n_real]
             if detailed_output:
-                scores = state.stop_scores.cpu().numpy()
+                scores = host.get("stop_scores")
+                if scores is None:
+                    scores = state.stop_scores.cpu().numpy()
                 for b, p in enumerate(chunk_preds):
                     g = self.world.graphs[p["scan_idx"]]
                     p["details"] = {
@@ -179,3 +216,20 @@ class Navigator:
         avg["semantic_steps"] = float(out["semantic_steps"])
         avg["scan_steps"] = float(out["scan_steps"])
         return (avg, per_item), preds
+
+
+def _gather_aux(aux: dict, state, mesh) -> dict:
+    """A dp-split decode's aux whole on every rank: per-episode tensors
+    concatenated over dp along their batch axis (``actions`` [T, B], the
+    others [B, ...]; plus the state's ``stop_scores``), counts summed."""
+    g = lambda x, dim=0: all_gather(x, mesh.dp_group, mesh.dp, mesh.dp_rank,
+                                    dim)
+    out = {}
+    for k, v in aux.items():
+        if v.dim() == 0:
+            out[k] = v.clone()
+            all_reduce_tensors([out[k].view(1)], mesh.dp_group)
+        else:
+            out[k] = g(v, 1 if k == "actions" else 0)
+    out["stop_scores"] = g(state.stop_scores)
+    return out

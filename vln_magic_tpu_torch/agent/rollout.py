@@ -17,7 +17,10 @@ fields it writes before writing them, so autograd, which carries gradients
 from step to step through the node embeddings and [MEM], never sees a saved
 tensor change, and ``torch.utils.checkpoint`` can recompute a step from an
 input nothing has mutated since.  Draws (dropout, sampled actions, MKRW)
-come from a ``torch.Generator`` made per step from the run's seed.
+come from a ``torch.Generator`` made per step from the run's seed.  On a
+mesh (``parallel``, an active region) each rank runs its dp rows: draws
+are made at the global batch and cut to the rank's rows, and the MAKD
+gate reads every rank's live lanes.
 
 Both loops take each role's intervention dictionaries (``zdicts``,
 ``agent.interventions.build_rollout_zdicts``), broadcast over the batch
@@ -56,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import EnvConfig, ModelConfig
 from ..env.world import WorldTables
+from ..parallel.mesh import dp_any, draw_uniform
 from ..utils.device import resolve_device
 from . import distill as D
 from . import geometry as geo
@@ -748,8 +752,8 @@ class Rollout:
             return nav_targets.clamp(min=0)     # ignore_id rows have ended
         if feedback == "argmax":
             return logits.argmax(dim=-1)
-        rand = lambda shape: torch.rand(shape, generator=generator,
-                                        device=logits.device)
+        # drawn at the global batch on a mesh (parallel.mesh.draw_uniform)
+        rand = lambda shape: draw_uniform(shape, generator, logits.device)
         if feedback == "sample":
             gumbel = -torch.log(-torch.log(rand(logits.shape)))
             return (logits.float() + gumbel).argmax(dim=-1)
@@ -1325,7 +1329,7 @@ class Rollout:
                         d.sample_exp_decay).detach()
                 ab_w = (L.mkrw_weights(gen, 5, d.rw_temp, logits.device)
                         if c.rw else c.ab_static)
-                gate = part(live0).any().float()
+                gate = dp_any(part(live0)).float()
                 s_o, t_o, tg = part(outs), part(t_outs), part(targets)
                 step_losses = lambda role, a, b, sw, learned: {
                     k: v * gate for k, v in D.makd_step_losses(

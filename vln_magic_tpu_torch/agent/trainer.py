@@ -52,6 +52,10 @@ from ..models.vlnbert import Critic, DualScaleVLNBert
 from ..utils.checkpoint import (CheckpointManager, pretrain_to_nav_key_map,
                                 restore_reference_checkpoint,
                                 save_reference_checkpoint)
+from ..parallel.sharding import (all_reduce_tensors, full_state_dict,
+                                 full_tensor, is_split, local_slice,
+                                 reduce_gradients, reduce_metrics,
+                                 shard_params)
 from ..utils.device import resolve_device
 from ..utils.weights import _flax_names, flax_named_grads, init_params
 from .distill import total_kd_loss
@@ -61,11 +65,6 @@ from .rollout import Rollout, Tables
 OPTIMIZERS = ("adamw", "adam", "sgd", "radam", "ralamb", "rangerlars",
               "rms")
 ABILITY_EMA = 0.5       # update_ability_grads' EMA of the gradient norms
-
-
-def _todo(what: str):
-    return NotImplementedError(f"{what} is not ported to vln_magic_tpu_torch "
-                               "yet (see ROADMAP.md)")
 
 
 # ----- learning-rate schedules (optax's, as functions of the step) -----
@@ -136,9 +135,29 @@ def make_lr_schedule(cfg):
 
 # ----- optimizers: clip_by_global_norm, then the optax family -----
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors, params=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    ``params``: the parameters the tensors are shaped like, where a mesh
+    may have split some (``_whole_norms``)."""
+    norms = torch._foreach_norm(tensors)
+    whole = _whole_norms(norms, params)
+    return torch.linalg.vector_norm(torch.stack(norms) if whole is None
+                                    else whole)
+
+
+def _whole_norms(norms, params):
+    """The norms [n] of whole leaves, from ``norms`` of the tensors shaped
+    like ``params``: where a mesh split a parameter over mp
+    (``parallel.shard_params``) its tensor is a slice, whose square is
+    summed over mp.  ``None`` where no parameter is split."""
+    if params is None or not any(is_split(p) for p in params):
+        return None
+    split = [is_split(p) for p in params]
+    sq = torch.stack(norms).float() ** 2
+    part = sq * torch.tensor(split, device=sq.device)
+    all_reduce_tensors([part], params[split.index(True)].tp_mesh.mp_group)
+    return torch.where(torch.tensor(split, device=sq.device), part,
+                       sq).sqrt()
 
 
 def _f32_pow(b: float, t: int):
@@ -227,6 +246,14 @@ class Optimizer:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
 
+    def shard(self, mesh) -> None:
+        """Cut the per-parameter state to this rank's slices where
+        ``parallel.shard_params`` split the parameters (state already
+        loaded is kept); norms then count each split leaf whole."""
+        for name in self._buffers():
+            setattr(self, name, [local_slice(p, t).clone() for p, t in
+                                 zip(self.params, getattr(self, name))])
+
     def zero_grad(self):
         for p in self.params:
             p.grad = None
@@ -236,7 +263,7 @@ class Optimizer:
         """One step from the accumulated ``.grad``; returns their global
         norm before clipping (this step's, under accumulation too)."""
         grads = self.grads()
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.params)
         if self.accum_steps > 1:
             # acc + (g - acc) / (n + 1)
             delta = torch._foreach_sub(grads, self.acc)
@@ -248,7 +275,7 @@ class Optimizer:
             grads = self.acc
             self.acc = [torch.zeros_like(p) for p in self.params]
             self.mini_step = 0
-            self._apply(grads, global_norm(grads))
+            self._apply(grads, global_norm(grads, self.params))
         else:
             self._apply(grads, norm)
         return norm
@@ -315,10 +342,16 @@ class Optimizer:
             update = mu_hat
         if self.kind == "radam":
             return update
-        p_norm = torch._foreach_norm(self.params)
-        u_norm = torch._foreach_norm(update)
+        p_norm = self._leaf_norms(self.params)
+        u_norm = self._leaf_norms(update)
         return [u * torch.where((pn == 0) | (un == 0), 1.0, pn / un)
                 for u, pn, un in zip(update, p_norm, u_norm)]
+
+    def _leaf_norms(self, tensors):
+        """Each tensor's norm, of the whole leaf where a mesh split it."""
+        norms = torch._foreach_norm(tensors)
+        whole = _whole_norms(norms, self.params)
+        return norms if whole is None else list(whole.unbind())
 
     def _lookahead(self, delta, t, sync_period=6, slow_step=0.5):
         """JAX's ``lookahead``: the fast weights are the parameters plus
@@ -341,7 +374,9 @@ class Optimizer:
         the mini-step (the parameters are the model's)."""
         state = {"count": self.count, "mini_step": self.mini_step}
         for name in self._buffers():
-            state[name] = [t.detach().clone() for t in getattr(self, name)]
+            # whole leaves on a mesh (a collective)
+            state[name] = [full_tensor(p, t).clone() for p, t in
+                           zip(self.params, getattr(self, name))]
         return state
 
     def load_state_dict(self, state: dict) -> None:
@@ -353,11 +388,14 @@ class Optimizer:
         self.mini_step = int(state["mini_step"])
         for name in self._buffers():
             mine = getattr(self, name)
-            if [t.shape for t in state[name]] != [t.shape for t in mine]:
+            # whole leaves, cut to this rank's slices on a mesh
+            theirs = [local_slice(p, t)
+                      for p, t in zip(self.params, state[name])]
+            if [t.shape for t in theirs] != [t.shape for t in mine]:
                 raise ValueError(f"optimizer state {name}: shapes do not "
                                  "match the parameters")
             setattr(self, name, [t.to(m.device, m.dtype).clone()
-                                 for t, m in zip(state[name], mine)])
+                                 for t, m in zip(theirs, mine)])
 
 
 def make_optimizer(cfg, params, lr=None, names=None) -> Optimizer:
@@ -426,12 +464,19 @@ class Trainer:
         self.ability_grads = np.zeros(5, np.float32)
         self._seeds = np.random.default_rng(seed)      # a rollout seed a step
         self._data_rng = np.random.default_rng(seed)   # fit()'s data order
+        self.mesh = None                               # use_mesh
 
     # ------------------------------------------------------------------
 
     def _batch(self, items, aug=False, observed_parity=None):
+        """The episode state and instructions of ``items``; on a mesh, of
+        this rank's dp rows of them (the instructions padded as the whole
+        batch pads them)."""
         c = self.cfg
         ids, masks = pad_instructions(items, c.env.max_instr_len)
+        if self.mesh is not None:
+            rows = self.mesh.rows(len(items))
+            items, ids, masks = items[rows], ids[rows], masks[rows]
         state0 = episodes_from_items(
             self.tables, items, c.model.hidden_size,
             observed_parity=(c.env.observed_graph_parity
@@ -458,7 +503,7 @@ class Trainer:
         c = self.cfg
         aux = self._run(state0, txt_ids, txt_masks, feedback, train_ml, seed,
                         zdicts)
-        bs = state0.batch_size
+        bs = self._global_bs(state0)
         ml = aux["ml_loss"] * train_ml / bs
         metrics = {"ml_loss": ml, "gmap_overflow": aux["gmap_overflow"]}
         t_total = torch.zeros((), device=self.device)
@@ -483,14 +528,16 @@ class Trainer:
         and ``dagger/`` as theirs (JAX ``_loss_for_fused_rollouts``)."""
         c = self.cfg
         d = c.distill
-        bs = state0.batch_size
         dup = lambda x: None if x is None else torch.cat([x, x])
         state2 = dataclasses.replace(state0, **{
             f.name: dup(getattr(state0, f.name))
             for f in dataclasses.fields(state0)})
-        aux = self._run(state2, dup(txt_ids), dup(txt_masks),
-                        f"teacher+{c.train.dagger_sample}", 1.0, seed, zdicts,
-                        fused_split=bs)
+        # on a mesh both halves of the batch axis split over dp
+        with self._active(blocks=2):
+            aux = self._run(state2, dup(txt_ids), dup(txt_masks),
+                            f"teacher+{c.train.dagger_sample}", 1.0, seed,
+                            zdicts, fused_split=state0.batch_size)
+        bs = self._global_bs(state0)
         w = (c.train.ml_weight, 1.0)
         ml = [aux["ml_loss_vec"][i] * w[i] / bs for i in (0, 1)]
         metrics = {"il/ml_loss": ml[0], "dagger/ml_loss": ml[1],
@@ -522,7 +569,7 @@ class Trainer:
             deterministic=False, train_rl=True, critic=self.critic,
             gamma=c.train.gamma, zdicts=zdicts)
         rl = (aux["rl_loss"] - c.train.entropy_loss_weight
-              * aux["rl_entropy"]) / state0.batch_size
+              * aux["rl_entropy"]) / self._global_bs(state0)
         return rl, torch.zeros((), device=self.device), {"rl/loss": rl}
 
     def _rollouts(self):
@@ -539,6 +586,26 @@ class Trainer:
         if t.fuse_rollouts and first:
             return [("fused", "", None, None, 0)]
         return first + [("one", "dagger", t.dagger_sample, 1.0, 1)]
+
+    def _global_bs(self, state0) -> int:
+        """The batch the losses are normalised by: the global one on a
+        mesh, where each rank's losses are its share."""
+        return state0.batch_size * (self.mesh.dp if self.mesh else 1)
+
+    def _active(self, blocks: int = 1):
+        """The mesh's active region (``parallel.mesh``), or none."""
+        return (self.mesh.active(blocks) if self.mesh is not None
+                else nullcontext())
+
+    def _trained_params(self) -> list:
+        """The parameters a step trains: the student's, the teacher's
+        under ICoD, the critic's under A2C."""
+        params = list(self.model.parameters())
+        if self.icod:
+            params += list(self.teacher_model.parameters())
+        elif self.train_critic:
+            params += list(self.critic.parameters())
+        return params
 
     def autocast(self):
         """The forwards' autocast context: bf16 under
@@ -612,7 +679,7 @@ class Trainer:
         weights = (self._bf16_weights()
                    if self.cfg.train.grads_dtype == "bfloat16"
                    else nullcontext())
-        with weights:
+        with weights, self._active():
             for kind, prefix, feedback, weight, sub in self._rollouts():
                 with self.autocast():
                     if kind == "fused":
@@ -631,6 +698,13 @@ class Trainer:
                 objective = objective + (total + t_total).detach()
                 metrics.update({k: v.detach() for k, v in m.items()})
         metrics["loss"] = loss
+        if self.mesh is not None:
+            # each rank's gradients and losses are its share of the
+            # global batch's
+            reduce_gradients(self._trained_params(), self.mesh)
+            metrics["objective"] = objective
+            metrics = reduce_metrics(metrics, self.mesh)
+            objective = metrics.pop("objective")
         return metrics, objective
 
     def _zero_grad(self):
@@ -645,9 +719,10 @@ class Trainer:
         ``{"params": ...}`` and ``"t_params"`` under ICoD or else
         ``"critic_params"`` under A2C (JAX's partitions), each ``{flax
         name: tensor}`` in the flax layout (``utils.weights.
-        flax_named_grads``).  ``seed`` is explicit, so both sides of a
-        comparison draw alike.  ``zdicts`` defaults to ``self.zdicts``;
-        ``aug`` reads the aug feature table."""
+        flax_named_grads``; whole leaves on a mesh, summed over dp).
+        ``seed`` is explicit, so both sides of a comparison draw alike.
+        ``zdicts`` defaults to ``self.zdicts``; ``aug`` reads the aug
+        feature table."""
         self._zero_grad()
         _, objective = self._accumulate_grads(
             items, seed, self.zdicts if zdicts is None else zdicts, aug)
@@ -752,6 +827,7 @@ class Trainer:
         it co-trains; with ``resume_optimizer`` the optimizer state that
         ``save(save_optimizer=True)`` wrote.  Returns ``(epoch, missing,
         unexpected)`` of the student's load."""
+        self._refuse_on_mesh("load")
         epoch, missing, unexpected = restore_reference_checkpoint(
             self.model, path)
         self.iteration = epoch
@@ -777,6 +853,7 @@ class Trainer:
             raise ValueError(f"role {role!r}: use 'student' or 'teacher'")
         if model is None:
             raise ValueError("this trainer has no teacher")
+        self._refuse_on_mesh("load_pretrained")
         _, missing, unexpected = restore_reference_checkpoint(
             model, path, key_map=pretrain_to_nav_key_map)
         return missing, unexpected
@@ -787,11 +864,13 @@ class Trainer:
         optimizer), ``iteration``, the rollout-seed generator and the
         ability-gradient norms."""
         teacher, t_opt = self.teacher_model, self.t_opt
-        return {"params": self.model.state_dict(),
+        # whole leaves on a mesh
+        return {"params": full_state_dict(self.model),
                 "opt_state": self.opt.state_dict(),
-                "critic_params": self.critic.state_dict(),
+                "critic_params": full_state_dict(self.critic),
                 "critic_opt_state": self.c_opt.state_dict(),
-                "t_params": None if teacher is None else teacher.state_dict(),
+                "t_params": (None if teacher is None
+                             else full_state_dict(teacher)),
                 "t_opt_state": None if t_opt is None else t_opt.state_dict(),
                 "iteration": self.iteration,
                 "seeds": self._seeds.bit_generator.state,
@@ -809,6 +888,7 @@ class Trainer:
         mgr = CheckpointManager(ckpt_dir)
         if not mgr.has(name):
             return False
+        self._refuse_on_mesh("load_state")
         state = mgr.restore(name, map_location=self.device)
         for key, mine in (("t_params", self.teacher_model),
                           ("t_opt_state", self.t_opt)):
@@ -870,19 +950,52 @@ class Trainer:
         d = dataclasses.replace(self.cfg.distill, ability_types=(ability,),
                                 adaptive_ability_weight=False,
                                 train_teacher=False)
-        with self.autocast():
+        with self.autocast(), self._active():
             aux = self.rollout.run(state0, ids, masks, "teacher",
                                    train_ml=1.0, deterministic=True,
                                    distill=d)
-            loss = total_kd_loss(aux["kd_losses"]) / state0.batch_size
+            loss = total_kd_loss(aux["kd_losses"]) / self._global_bs(state0)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        return global_norm([torch.zeros_like(p) if g is None else g
-                            for g, p in zip(grads, params)])
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params)]
+        if self.mesh is not None:
+            all_reduce_tensors(grads, self.mesh.dp_group)
+        return global_norm(grads, params)
 
-    # ----- not ported yet -----
+    # ----- a device mesh -----
 
     def use_mesh(self, mesh):
-        raise _todo("training on a device mesh")
+        """Train over a dp x mp mesh (``parallel.make_mesh``; JAX
+        ``use_mesh``, the reference's DDP default, main_nav.py:681 +
+        agent_base.py:114-116): the student, the teacher, the critic and
+        their optimizer states are sharded in place
+        (``parallel.shard_params``: Megatron splits over mp, the state
+        already loaded kept, so call it after any load).  Every rank then
+        takes the global ``items`` of a step, rolls out its dp rows with
+        the draws of the global batch, normalises each loss by the global
+        batch and sums the gradients and metrics over dp, so a step
+        equals one process's on the same batch, and every rank returns
+        its metrics.  The global batch size must divide by dp."""
+        dp = mesh.shape.get("dp", 1)
+        if self.cfg.train.batch_size % dp != 0:
+            raise ValueError(
+                f"global batch_size {self.cfg.train.batch_size} not "
+                f"divisible by dp={dp}; the CLI scales batch_size by dp "
+                f"(per-device batch x devices, DDP semantics)")
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the trainer on "
+                             f"{self.device}")
+        self.mesh = mesh
+        for model in (self.model, self.teacher_model, self.critic):
+            shard_params(model, mesh)
+        for opt in (self.opt, self.t_opt, self.c_opt):
+            shard_params(opt, mesh)
+        return self
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what} loads whole leaves: call it before "
+                             "use_mesh")
 
 
 _LAYER_NORMS = (torch.nn.functional.layer_norm, torch.layer_norm)

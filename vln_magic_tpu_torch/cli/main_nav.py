@@ -37,8 +37,17 @@ The weights files are the reference ``.pt`` container, which the JAX
 package reads and writes too (``utils.checkpoint``); optimizer sidecars,
 train states and serving bundles are this package's own.  Like the JAX
 CLI, no flag turns on ``ModelConfig.use_pallas_attention``, so no CUDA
-kernel of ``ops/attention.py`` runs in any mode.  What the port does not
-run yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+kernel of ``ops/attention.py`` runs in any mode.
+
+``train`` and ``valid`` run over a dp x mp mesh (``parallel``) under
+``--dp``/``--mp`` (``--world_size`` is a dp hint), one process per device,
+as torchrun starts them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``); ``--batch_size`` is then per device and
+the global batch ``--batch_size`` x dp (DDP semantics), and only rank 0
+writes logs, checkpoints and submissions:
+
+    torchrun --nproc_per_node 2 -m vln_magic_tpu_torch.cli.main_nav \
+        --mode train --dp 2 ...
 
 Usage:
     python -m vln_magic_tpu_torch.cli.main_nav --mode valid --name exp1 ...
@@ -153,13 +162,14 @@ def parse_args(argv=None):
     p.add_argument("--local_rank", type=int, default=-1)
     p.add_argument("--node_rank", type=int, default=0)
     # the JAX package's mesh axes (the reference's counterpart is
-    # torch.distributed.launch + DDP, main_nav.py:681); this port runs on
-    # one device, so only 1 (or unset) is accepted
+    # torch.distributed.launch + DDP, main_nav.py:681): one process per
+    # device under torchrun (build_mesh)
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel axis: multi-GPU is not ported, 1 only")
+                   help="data-parallel mesh axis (episode-batch rows); "
+                        "default WORLD_SIZE / mp")
     p.add_argument("--mp", type=int, default=1,
-                   help="tensor-parallel axis: multi-GPU is not ported, 1 "
-                        "only")
+                   help="tensor-parallel mesh axis (Megatron column/row "
+                        "splits)")
     p.add_argument("--num_workers", type=int, default=0)      # tables, no loaders
     p.add_argument("--enc_full_graph", action="store_true", default=True)
     p.add_argument("--fusion", default="dynamic",
@@ -295,20 +305,33 @@ def parse_args(argv=None):
     return args
 
 
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP.md item for what
-    the port does not run yet."""
-    mesh = args.dp not in (None, 1) or args.mp != 1 or args.world_size > 1
-    checks = [
-        (args.mode in ("train", "valid") and mesh,
-         f"a device mesh (--dp {args.dp}, --mp {args.mp}, --world_size "
-         f"{args.world_size})", 7),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to vln_magic_tpu_torch yet "
-                f"(ROADMAP.md Queue 1 item {item})")
+def build_mesh(args):
+    """The dp x mp mesh of ``--mode train/valid`` (JAX ``build_mesh``; the
+    reference's init_distributed + DDP wrap, main_nav.py:681), or ``None``
+    for a 1 x 1 mesh.  dp is ``--dp``, else ``--world_size`` when above 1
+    (the reference flag as a dp hint), else the torchrun ``WORLD_SIZE`` /
+    mp.  dp x mp must be the world size (``SystemExit`` otherwise, before
+    any group starts).  The process group starts on ``cuda:LOCAL_RANK``
+    (NCCL), or on the CPU (gloo) under ``--device cpu``; ``args.device``
+    becomes the rank's device."""
+    from ..parallel import init_distributed, make_mesh
+
+    mp = max(args.mp, 1)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.dp is not None:
+        dp = args.dp
+    elif getattr(args, "world_size", 1) > 1:
+        dp = args.world_size
+    else:
+        dp = max(world // mp, 1)
+    if dp * mp <= 1:
+        return None
+    if dp * mp != world:
+        raise SystemExit(f"--dp {dp} x --mp {mp} needs {dp * mp} devices; "
+                         f"{world} visible (WORLD_SIZE)")
+    dev = init_distributed(args.device)
+    args.device = str(dev)
+    return make_mesh(dp * mp, mp=mp, device=dev)
 
 
 def feature_store(args, feat_dim: int):
@@ -479,6 +502,7 @@ def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
     from ..agent.interventions import (KMeansPicker, build_rollout_zdicts,
                                        extract_cfp_features, save_cfp_tsv,
                                        update_backdoor_dict)
+    from ..utils.dist import is_primary
     from ..utils.logging import write_to_record_file
 
     cache = trainer.__dict__.setdefault("_zrefresh_cache", {})
@@ -504,8 +528,10 @@ def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
                 cache["builder"] = _make_cfp_builder(cfg, world)
             feats, ids = extract_cfp_features(shim, items, cache["builder"],
                                               autocast=trainer.autocast)
-            save_cfp_tsv(os.path.join(
-                args.ckpt_dir, f"cfp_features_{role}_{it}.tsv"), feats, ids)
+            if is_primary():        # every rank computes the same rows
+                save_cfp_tsv(os.path.join(
+                    args.ckpt_dir, f"cfp_features_{role}_{it}.tsv"), feats,
+                    ids)
             front = KMeansPicker(
                 feats, args.front_n_clusters,
                 seed=cfg.train.seed).random_pick_front_features(
@@ -560,7 +586,7 @@ def _gmap_overflow_warning(split, n, cfg):
             f"raise --max_gmap_len")
 
 
-def train(args, cfg, world, splits):
+def train(args, cfg, world, splits, mesh=None):
     """``--mode train``: ``Trainer.fit`` in intervals of ``--log_every``,
     with the train state saved after each; ``--aug`` batches (on the
     EnvEdit table, ``aug_feature_table``) alternate with the train split's
@@ -576,12 +602,16 @@ def train(args, cfg, world, splits):
                                     save_reference_checkpoint)
     from ..utils.logging import MetricsLogger, write_to_record_file
 
+    from ..utils.dist import is_primary
+
     record = os.path.join(args.log_dir, "train.txt")
     logger = MetricsLogger(args.log_dir)
-    with open(os.path.join(args.log_dir, "training_args.json"), "w") as f:
-        json.dump({k: v for k, v in vars(args).items()
-                   if isinstance(v, (int, float, str, bool, list, type(None)))},
-                  f, indent=2)
+    if is_primary():
+        with open(os.path.join(args.log_dir, "training_args.json"),
+                  "w") as f:
+            json.dump({k: v for k, v in vars(args).items()
+                       if isinstance(v, (int, float, str, bool, list,
+                                         type(None)))}, f, indent=2)
 
     trainer = Trainer(cfg, world, device=args.device,
                       aug_features=aug_feature_table(args, world))
@@ -618,6 +648,12 @@ def train(args, cfg, world, splits):
     if args.teacher_bert_ckpt_file and trainer.teacher_model is not None \
             and not resumed:
         trainer.load_pretrained(args.teacher_bert_ckpt_file, "teacher")
+    if mesh is not None:
+        # after every load: use_mesh shards whatever the checkpoints left
+        trainer.use_mesh(mesh)
+        write_to_record_file(
+            f"mesh: dp={mesh.shape['dp']} x mp={mesh.shape['mp']}, global "
+            f"batch {cfg.train.batch_size}", record)
 
     # SIGTERM (preemption) -> emergency train-state checkpoint, then exit
     # 143.  A train step updates the parameters tensor by tensor, so inside
@@ -647,6 +683,8 @@ def train(args, cfg, world, splits):
     write_to_record_file("training loop armed (SIGTERM-safe)", record)
 
     nav = Navigator(cfg, world, device=args.device)
+    if mesh is not None:
+        nav.use_mesh(mesh)      # dp-split validation decodes
     grad_aw = (cfg.distill.adaptive_ability_weight
                and cfg.distill.adaptive_ability_weight_type == "grad"
                and trainer.kdl)
@@ -772,7 +810,7 @@ def train(args, cfg, world, splits):
             trainer.save(os.path.join(args.ckpt_dir, "latest_dict.pt"),
                          save_optimizer=args.save_optimizer)
             trainer.save_state(args.ckpt_dir)
-            if speaker is not None:
+            if speaker is not None and is_primary():
                 # the speaker in the transpeaker container, for --speaker
                 speaker.save(it, os.path.join(args.ckpt_dir,
                                               "speaker_latest.pt"))
@@ -782,7 +820,7 @@ def train(args, cfg, world, splits):
     return trainer
 
 
-def valid(args, cfg, world, splits):
+def valid(args, cfg, world, splits, mesh=None):
     from ..agent.evaluator import Evaluator, submission_format
     from ..agent.navigator import Navigator
     from ..utils.checkpoint import restore_reference_checkpoint
@@ -795,6 +833,11 @@ def valid(args, cfg, world, splits):
         epoch, _, _ = restore_reference_checkpoint(nav.model, args.resume_file)
         write_to_record_file(f"loaded {args.resume_file} (epoch {epoch})",
                              record)
+    if mesh is not None:
+        # dp-split waves, every rank decoding its rows (no item shards)
+        nav.use_mesh(mesh)
+        write_to_record_file(
+            f"mesh: dp={mesh.shape['dp']} x mp={mesh.shape['mp']}", record)
 
     # intervention dictionaries: the reference's TSV files when their flags
     # name existing paths (main_nav.py:574-592), else rebuilt from the
@@ -830,15 +873,17 @@ def valid(args, cfg, world, splits):
             t0 = time.time()
             # several processes: contiguous eval shards per process,
             # predictions merged over the collective (reference
-            # sel_data_idxs + all_gather, env.py:126-134, main_nav.py:606-607)
-            my_items = shard_items(items)
+            # sel_data_idxs + all_gather, env.py:126-134, main_nav.py:606-607);
+            # on a mesh the navigator splits each wave itself
+            my_items = items if mesh is not None else shard_items(items)
             (local_avg, _), preds = navigator.evaluate(
                 my_items, zdicts=zd, detailed_output=args.detailed_output,
                 ensemble_n=args.ensemble_n)
             if local_avg.get("gmap_overflow"):
                 write_to_record_file(_gmap_overflow_warning(
                     split, int(local_avg["gmap_overflow"]), cfg), record)
-            preds = gather_predictions(preds)
+            if mesh is None:
+                preds = gather_predictions(preds)
             if args.submit and tag == "" and is_primary():
                 with open(os.path.join(args.pred_dir,
                                        f"submit_{split}.json"), "w") as f:
@@ -867,6 +912,8 @@ def valid(args, cfg, world, splits):
         t_nav = Navigator(t_cfg, world, device=args.device)
         restore_reference_checkpoint(t_nav.model, args.teacher_resume_file,
                                      drop_kd_heads=True)
+        if mesh is not None:
+            t_nav.use_mesh(mesh)
         results.update({f"teacher_{k}": v
                         for k, v in eval_model("teacher ", t_nav).items()})
     return results
@@ -1067,7 +1114,6 @@ def main(argv=None):
     from ..utils.device import resolve_device
 
     args = parse_args(argv)
-    refuse_unported(args)
     resolve_device(args.device)     # a missing GPU fails before any work
     cfg = build_config(args)
     if args.mode == "serve":
@@ -1076,8 +1122,23 @@ def main(argv=None):
              "extract_cfp_features": extract_cfp}
     if args.mode not in modes:
         raise SystemExit(f"unknown mode {args.mode}")
+    mesh = build_mesh(args) if args.mode in ("train", "valid") else None
+    if mesh is not None:
+        # DDP semantics: --batch_size is per device; the global batch is
+        # scaled by dp (reference: each rank rolls out batch_size episodes)
+        import dataclasses
+
+        dp = mesh.shape["dp"]
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(
+                cfg.train, batch_size=cfg.train.batch_size * dp))
+        if mesh.rank == 0:
+            print(f"mesh: dp={dp} x mp={mesh.shape['mp']} "
+                  f"(global batch {cfg.train.batch_size})")
     world, splits = build_dataset(args, cfg)
-    return modes[args.mode](args, cfg, world, splits)
+    if mesh is None:
+        return modes[args.mode](args, cfg, world, splits)
+    return modes[args.mode](args, cfg, world, splits, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ format, ``utils.checkpoint.CheckpointManager``) and exports
 ``ckpts/model_step_N.pt``, the reference container that either package's
 fine-tuning loads as its pretrained trunk.  ``--checkpoint NAME`` starts
 from the student saved under NAME.  Runs on ``--device`` (default
-``cuda``; ``cpu`` on a host without a GPU).
+``cuda``; ``cpu`` on a host without a GPU).  ``--dp``/``--mp`` pretrain
+over a dp x mp mesh, one process per device under torchrun, as
+``main_nav``'s ``build_mesh`` sets it up; the global batch is
+``--train_batch_size`` x dp, and only rank 0 writes.
 
 Usage:
     python -m vln_magic_tpu_torch.cli.train_pretrain --config cfg.json \\
@@ -45,13 +48,13 @@ def parse_args(argv=None):
     p.add_argument("--log_steps", type=int, default=50)
     p.add_argument("--train_kdl", action="store_true", default=False)
     p.add_argument("--checkpoint", default=None)
-    # the JAX package's mesh axes; this port runs on one device, so only
-    # 1 (or unset) is accepted
+    # the multi-device mesh (the reference pretrains via
+    # torch.distributed.launch --nproc_per_node, run_r2r_magic.sh:8);
+    # --train_batch_size stays per device, the global batch is it x dp
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel axis: multi-GPU is not ported, 1 only")
+                   help="data-parallel mesh axis; default WORLD_SIZE / mp")
     p.add_argument("--mp", type=int, default=1,
-                   help="tensor-parallel axis: multi-GPU is not ported, 1 "
-                        "only")
+                   help="tensor-parallel mesh axis (Megatron splits)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'")
     # synthetic fallback knobs
@@ -115,15 +118,13 @@ def reference_pretrain_flags(blob: dict) -> tuple[dict, dict]:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dp not in (None, 1) or args.mp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --mp {args.mp}: pretraining on a device mesh "
-            "is not ported to vln_magic_tpu_torch yet (see ROADMAP.md)")
     from ..config import from_reference_flags
     from ..env.synthetic import make_synthetic_instructions, make_synthetic_world
     from ..pretrain.trainer import PretrainTrainer
     from ..utils.checkpoint import CheckpointManager, save_reference_checkpoint
+    from ..parallel import full_state_dict
     from ..utils.logging import MetricsLogger, write_to_record_file
+    from .main_nav import build_mesh
 
     os.makedirs(args.output_dir, exist_ok=True)
     record = os.path.join(args.output_dir, "pretrain.txt")
@@ -137,6 +138,13 @@ def main(argv=None):
     cfg_flags, cfg_ratios = reference_pretrain_flags(args.config_blob)
     flags = {**model_blob, **cfg_flags}
     flags.setdefault("train_kdl", args.train_kdl)
+    mesh = build_mesh(args) if args.mode == "train" else None
+    batch_size = args.train_batch_size
+    if mesh is not None:
+        batch_size *= mesh.shape["dp"]   # per-device batch x dp (DDP)
+        if mesh.rank == 0:
+            print(f"mesh: dp={mesh.shape['dp']} x mp={mesh.shape['mp']} "
+                  f"(global batch {batch_size})")
     cfg = from_reference_flags(flags)
     cfg = dataclasses.replace(
         cfg,
@@ -144,7 +152,7 @@ def main(argv=None):
                                   image_feat_size=args.synthetic_feat_dim,
                                   vocab_size=min(cfg.model.vocab_size, 2000)),
         train=dataclasses.replace(cfg.train,
-                                  batch_size=args.train_batch_size,
+                                  batch_size=batch_size,
                                   lr=args.learning_rate, seed=args.seed))
     if cfg.teacher_model is not None:
         cfg = dataclasses.replace(
@@ -170,6 +178,8 @@ def main(argv=None):
     if args.checkpoint and mgr.has(args.checkpoint):
         trainer.model.load_state_dict(mgr.restore(args.checkpoint,
                                                   map_location=trainer.device))
+    if mesh is not None:
+        trainer.use_mesh(mesh)   # after the restore: shards whatever loaded
 
     ratios = cfg_ratios or args.config_blob.get(
         "mix_ratio", {"mlm": 1, "sap": 1, "cfp": 1})
@@ -185,8 +195,10 @@ def main(argv=None):
         write_to_record_file(
             f"step {done}/{args.num_train_steps} loss={mean_loss:.3f} "
             + " ".join(f"{k}={v:.3f}" for k, v in val.items()), record)
-        mgr.save("latest", trainer.model.state_dict())
-        mgr.save(f"model_step_{done}", trainer.model.state_dict())
+        # whole leaves on a mesh; rank 0 writes
+        state = full_state_dict(trainer.model)
+        mgr.save("latest", state)
+        mgr.save(f"model_step_{done}", state)
         # the reference container for the --bert_ckpt_file fine-tune flow
         save_reference_checkpoint(
             trainer.model, os.path.join(ckpt_dir, f"model_step_{done}.pt"),

@@ -11,6 +11,12 @@ deterministic call (evaluation) applies no dropout; a training call
 and embeddings as flax's ``nn.Dropout`` does, with masks drawn from the
 ``torch.Generator`` the caller passes down (``None``: PyTorch's default
 generator).
+
+On a mesh (``parallel``) the linears that ``parallel.shard_params``
+splits become its parallel layers, an attention whose heads divide by mp
+runs at its local heads, and every dropout mask is drawn at the global
+batch and all heads and cut to this rank's rows and heads
+(``parallel.mesh.draw_uniform``), so a mesh draws what one process draws.
 """
 
 from __future__ import annotations
@@ -22,17 +28,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import packed_attention
+from ..parallel.mesh import draw_uniform
+from ..parallel.sharding import reduce_from_mp, scatter_to_mp
 
 NEG_INF = -1e9
 
 
-def dropout(x, rate: float, deterministic: bool, generator=None):
+def dropout(x, rate: float, deterministic: bool, generator=None,
+            batch_dim: int = 0, branches: int = 1, head_dim=None,
+            heads_mp=None):
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
-    and scale it by ``1 / (1 - rate)``; the mask comes from ``generator``."""
+    and scale it by ``1 / (1 - rate)``; the mask comes from ``generator``.
+    ``batch_dim``, ``branches``, ``head_dim``, ``heads_mp``: where ``x``
+    holds batch rows and heads, for the mesh's draws
+    (``parallel.mesh.draw_uniform``)."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        >= rate
+    keep = draw_uniform(x.shape, generator, x.device, batch_dim, branches,
+                        head_dim, heads_mp) >= rate
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
@@ -65,6 +78,8 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.h = num_heads
         self.hd = hidden_size // num_heads
+        self.h_full = num_heads     # all heads; ``h`` the local ones
+        self.tp_mesh = None
         self.use_packed = use_packed
         self.dropout = dropout
         self.softmax_in_dtype = softmax_in_dtype
@@ -87,17 +102,30 @@ class MultiHeadAttention(nn.Module):
                                  need_maps)
         return self.out(ctx), probs
 
+    def shard_heads(self, mesh):
+        """Run at this mp rank's heads (``parallel.shard_params``, whose
+        column-parallel Q/K/V give them and whose row-parallel ``out``
+        sums them)."""
+        self.tp_mesh = mesh
+        self.h = self.h_full // mesh.mp
+
     def attend(self, q, k, v, bias=None, deterministic=True, generator=None,
-               need_maps=False):
+               need_maps=False, branches: int = 1):
         """Attention of projected Q [B, Lq, H*hd] over K/V ([B, Lk, H*hd]
         or [B, Lk, H, hd]): (context [B, Lq, H*hd] before ``out``, the
         head-averaged probabilities [B, Lq, Lk] or zeros on the packed
         path).  The branch-fused trunk calls it with both branches on the
-        batch axis (``models.vlnbert.BranchedTrunk``)."""
+        batch axis (``models.vlnbert.BranchedTrunk``, ``branches`` 2).
+        Head-split (``shard_heads``): H is the local heads, a per-head
+        bias is cut to them, and the map averages every rank's heads."""
         h, hd = self.h, self.hd
         d = h * hd
         b, lq = q.shape[0], q.shape[1]
         lk = k.shape[1]
+        mesh = self.tp_mesh
+        if mesh is not None and bias is not None \
+                and bias.shape[-3] == self.h_full > 1:
+            bias = scatter_to_mp(bias, mesh, -3)
 
         if self.use_packed and deterministic and not need_maps:
             k = k.reshape(b, lk, d)
@@ -134,9 +162,12 @@ class MultiHeadAttention(nn.Module):
                 probs = torch.softmax(scores, dim=-1)
             else:
                 probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        probs_drop = dropout(probs, self.dropout, deterministic, generator)
+        probs_drop = dropout(probs, self.dropout, deterministic, generator,
+                             0, branches, 1, mesh)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs_drop, v).reshape(b, lq, d)
-        return ctx, probs.mean(dim=1)
+        if mesh is None:
+            return ctx, probs.mean(dim=1)
+        return ctx, reduce_from_mp(probs.sum(dim=1), mesh) / self.h_full
 
 
 class AddNorm(nn.Module):

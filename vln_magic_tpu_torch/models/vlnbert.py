@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..utils.device import resolve_device
+from ..parallel.sharding import parallel_linear
 from .layers import (NEG_INF, CrossModalLayer, MultiHeadAttention,
                      TransformerLayer, dropout, mask_to_bias)
 
@@ -329,8 +330,6 @@ class DualScaleVLNBert(nn.Module):
         to [B, L, H, hd]; ``None`` for the others."""
         c = self.cfg
         n_hoist = 1 if c.use_lang2visn_attn else c.num_x_layers
-        h = c.num_attention_heads
-        split = lambda y: y.reshape(y.shape[0], y.shape[1], h, -1)
         out = {}
         for branch, enc in (("global", self.global_encoder),
                             ("local", self.local_encoder)):
@@ -338,6 +337,9 @@ class DualScaleVLNBert(nn.Module):
             for i, layer in enumerate(enc.layers):
                 if i < n_hoist:
                     att = layer.crossattention
+                    # the layer's heads (its local heads on a mesh)
+                    split = lambda y, h=att.h: y.reshape(
+                        y.shape[0], y.shape[1], h, -1)
                     kvs.append((split(att.key(txt_embeds)),
                                 split(att.value(txt_embeds))))
                 else:
@@ -494,10 +496,14 @@ class DualScaleVLNBert(nn.Module):
         attns = []
         for i, layer in enumerate(self.global_encoder.layers):
             p = w[f"layer_{i}"]
-            lin = lambda x, name: _branch_linear(x, p[name + ".weight"],
-                                                 p[name + ".bias"])
+            # a mesh's split of each linear (parallel.shard_params)
+            lin = lambda x, name, layer=layer: parallel_linear(
+                x, p[name + ".weight"], p[name + ".bias"],
+                getattr(layer.get_submodule(name), "tp", None),
+                _branch_linear)
             add_norm = lambda res, x, name: _branch_layer_norm(
-                res + dropout(x, c.hidden_dropout, deterministic, generator),
+                res + dropout(x, c.hidden_dropout, deterministic, generator,
+                              batch_dim=1),
                 p[name + ".LayerNorm_0.weight"],
                 p[name + ".LayerNorm_0.bias"], c.layer_norm_eps)
 
@@ -505,7 +511,8 @@ class DualScaleVLNBert(nn.Module):
                 q = lin(q_in, name + ".query").flatten(0, 1)
                 k = lin(kv_in, name + ".key").flatten(0, 1)
                 v = lin(kv_in, name + ".value").flatten(0, 1)
-                ctx, probs = mod.attend(q, k, v, bias, need_maps=maps, **drop)
+                ctx, probs = mod.attend(q, k, v, bias, need_maps=maps,
+                                        branches=2, **drop)
                 return lin(ctx.unflatten(0, (2, b)), name + ".out"), probs
 
             x_out, x_probs = attention(layer.crossattention, "crossattention",
@@ -552,9 +559,10 @@ class DualScaleVLNBert(nn.Module):
 
 def _branch_linear(x, weight, bias):
     """``nn.Linear`` per branch: ``x`` [2, ..., in] with ``weight`` [2, out,
-    in] and ``bias`` [2, out], as one batched product."""
-    y = torch.baddbmm(bias[:, None, :], x.reshape(2, -1, x.shape[-1]),
-                      weight.transpose(1, 2))
+    in] and ``bias`` [2, out] (or ``None``), as one batched product."""
+    x2, w = x.reshape(2, -1, x.shape[-1]), weight.transpose(1, 2)
+    y = (torch.bmm(x2, w) if bias is None
+         else torch.baddbmm(bias[:, None, :], x2, w))
     return y.reshape(*x.shape[:-1], weight.shape[1])
 
 

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..models.vlnbert import DualScaleVLNBert
+from ..parallel.sharding import vocab_logits
 from ..utils.device import resolve_device
 
 
@@ -46,9 +47,12 @@ class MLMHead(nn.Module):
         self.norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
 
-    def forward(self, hidden, word_embedding):
+    def forward(self, hidden, word_embeddings: nn.Module):
+        """Logits over the whole vocabulary; ``word_embeddings`` is the
+        tied ``nn.Embedding`` (vocab-parallel on a mesh:
+        ``parallel.sharding.vocab_logits`` gathers the shards)."""
         x = self.norm(F.gelu(self.transform(hidden)))
-        return x @ word_embedding.t() + self.bias
+        return vocab_logits(x, word_embeddings) + self.bias
 
 
 class GlocalTextPathCMTPretrain(nn.Module):
@@ -149,7 +153,7 @@ class GlocalTextPathCMTPretrain(nn.Module):
         """[B, L, vocab] logits at every instruction position."""
         txt_embeds, _ = self.encode_text(batch, deterministic, generator)
         return self.mlm_head(txt_embeds,
-                             self.bert.lang_encoder.word_embeddings.weight)
+                             self.bert.lang_encoder.word_embeddings)
 
     def mrc(self, batch, deterministic=True, generator=None):
         """[B, P, image_prob_size] class logits of the final step's views."""

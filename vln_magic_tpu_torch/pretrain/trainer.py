@@ -15,15 +15,25 @@ Everything runs in f32, with no autocast (TF32 is off on the card,
 teacher built with ``use_pallas_attention`` takes the packed kernel in
 every step; so does the student in ``validate``.  The student's training
 forward never does: dropout is on, and the kernel has no backward.
+
+On a mesh (``use_mesh``) every rank builds the global batch, runs the
+models on its dp rows (dropout drawn at the global batch), gathers the
+head outputs over dp and takes the task losses, which span the batch (the
+masked-token means, CFP's InfoNCE), on the global batch; the gradients are
+summed over dp.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..agent.losses import kd_loss, mse_loss
-from ..agent.trainer import _todo, make_optimizer
+from ..agent.trainer import make_optimizer
+from ..parallel.sharding import (gather_from_dp, reduce_gradients,
+                                 shard_params, shard_pytree_batch)
 from ..config import MagicConfig
 from ..env.synthetic import make_synthetic_instructions
 from ..utils.device import resolve_device
@@ -88,6 +98,7 @@ class PretrainTrainer:
         self._seeds = np.random.default_rng(seed)   # a dropout seed a step
         self._sampler = None
         self._loader = None
+        self.mesh = None                            # use_mesh
 
     def _dummy_batch(self):
         items = make_synthetic_instructions(
@@ -98,26 +109,50 @@ class PretrainTrainer:
 
     # ----- per-task losses -----
 
+    def _head(self, task, batch, model, generator):
+        """The head output of ``task`` (a tensor or a dict of tensors),
+        for cfp under distillation with the student's KD projections
+        (``kd_<key>``).  On a mesh the models see this rank's dp rows and
+        the outputs are gathered over dp: the parameters act on local rows
+        only, and everything after is a function of the global batch."""
+        kw = {"deterministic": generator is None, "generator": generator}
+        mesh = self.mesh
+        if mesh is not None:
+            batch = shard_pytree_batch(batch, mesh)
+        with (mesh.active() if mesh is not None else nullcontext()):
+            out = getattr(model, task)(batch, **kw)
+            if task == "cfp" and model is self.model and self.kdl \
+                    and self.cfg.model.kd_heads:
+                out.update({f"kd_{k}": model.bert_kd_project(head, out[k])
+                            for k, head in CFP_KD_HEADS.items()})
+        if mesh is None:
+            return out
+        if isinstance(out, dict):
+            return {k: gather_from_dp(v, mesh) for k, v in out.items()}
+        return gather_from_dp(out, mesh)
+
     def _task_loss(self, task, batch, model=None, generator=None):
         """(task loss, the head output, accuracies) of ``task`` on
         ``batch``; deterministic when ``generator`` is None, else dropout
         with masks from it."""
         model = model or self.model
-        kw = {"deterministic": generator is None, "generator": generator}
+        if task not in ("mlm", "mrc", "sap", "og", "cfp"):
+            raise ValueError(task)
+        out = self._head(task, batch, model, generator)
         if task == "mlm":
-            logits = model.mlm(batch, **kw)
+            logits = out
             loss, valid = mlm_loss(logits, batch["mlm_labels"])
             return loss, logits, {
                 "mlm_acc": _accuracy(logits, batch["mlm_labels"], valid)}
         if task == "mrc":
-            logits = model.mrc(batch, **kw)
+            logits = out
             m = batch["mrc_view_mask"]
             loss = mrc_loss(logits, batch["mrc_targets"], m)
             hit = logits.argmax(-1) == batch["mrc_targets"].argmax(-1)
             return loss, logits, {
                 "mrc_acc": (hit * m).sum() / m.sum().clamp(min=1)}
         if task == "sap":
-            outs = model.sap(batch, **kw)
+            outs = out
             g_lbl, l_lbl = batch["sap_global_label"], batch["sap_local_label"]
             loss = (sap_loss(outs["global_logits"], g_lbl)
                     + sap_loss(outs["local_logits"], l_lbl)
@@ -127,30 +162,27 @@ class PretrainTrainer:
                 "sap_lacc": _accuracy(outs["local_logits"], l_lbl),
                 "sap_facc": _accuracy(outs["fused_logits"], g_lbl)}
         if task == "og":
-            logits = model.og(batch, **kw)
+            logits = out
             return sap_loss(logits, batch["og_labels"]), logits, {
                 "og_acc": _accuracy(logits, batch["og_labels"])}
-        if task == "cfp":
-            embeds = model.cfp(batch, **kw)
-            loss = cfp_loss(embeds, self.cfg.model.cfp_temperature)
-            sim = embeds["txt"] @ embeds["fused"].t()
-            hit = sim.argmax(-1) == torch.arange(sim.shape[0],
-                                                 device=sim.device)
-            return loss, embeds, {"cfp_acc": hit.float().mean()}
-        raise ValueError(task)
+        embeds = out
+        loss = cfp_loss(embeds, self.cfg.model.cfp_temperature)
+        sim = embeds["txt"] @ embeds["fused"].t()
+        hit = sim.argmax(-1) == torch.arange(sim.shape[0], device=sim.device)
+        return loss, embeds, {"cfp_acc": hit.float().mean()}
 
     def _kd_penalty(self, task, s_out, t_out):
         """In-step KD (the pretrain kdl block): ``kd_loss`` of the head
         outputs for mlm/mrc/sap/og; for cfp the student's embeddings
         projected to the teacher's width by its KD heads, under
         ``mse_loss`` (0 without KD heads).  ``t_out`` is the teacher's,
-        computed without grad."""
+        computed without grad; the student's cfp projections come with its
+        output (``_head``)."""
         if task == "cfp":
             if not self.cfg.model.kd_heads:
                 return torch.zeros((), device=self.device)
-            return sum(mse_loss(self.model.bert_kd_project(head, s_out[k]),
-                                t_out[k], loss_type="mean")
-                       for k, head in CFP_KD_HEADS.items())
+            return sum(mse_loss(s_out[f"kd_{k}"], t_out[k], loss_type="mean")
+                       for k in CFP_KD_HEADS)
         return kd_loss(s_out, t_out, temperature=self.cfg.distill.temperature,
                        loss_type="mean")
 
@@ -184,6 +216,8 @@ class PretrainTrainer:
         self.opt.zero_grad()
         loss, metrics = self._objective(task, batch, gen)
         loss.backward()
+        if self.mesh is not None:
+            reduce_gradients(self.model.parameters(), self.mesh)
         self.opt.step()
         self.opt.zero_grad()
         self.iteration += 1
@@ -265,4 +299,20 @@ class PretrainTrainer:
         return out
 
     def use_mesh(self, mesh):
-        raise _todo("pretraining on a device mesh")
+        """Pretrain over a dp x mp mesh (JAX ``use_mesh``, the DDP
+        equivalent, SURVEY §2.4): the student, the teacher and the
+        optimizer state sharded in place (``parallel.shard_params``; call
+        it after any restore), every batch split over dp (``_head``).
+        ``train_step``, ``fit`` and ``validate`` then equal one process's
+        on the same global batches.  The global batch size must divide by
+        dp."""
+        dp = mesh.shape.get("dp", 1)
+        if self.cfg.train.batch_size % dp != 0:
+            raise ValueError(
+                f"global batch_size {self.cfg.train.batch_size} not "
+                f"divisible by dp={dp}")
+        self.mesh = mesh
+        shard_params(self.model, mesh)
+        shard_params(self.teacher, mesh)
+        shard_params(self.opt, mesh)
+        return self

@@ -16,7 +16,9 @@ drop the KD heads, as a teacher load does (agent_base.py:326-332).
 ``CheckpointManager`` keeps the port's own checkpoints (``torch.save`` of
 state dicts and plain Python values) under names, with the latest/best
 names of the reference (main_nav.py:486-541).  A JAX orbax directory is not
-readable here.
+readable here.  With several processes only rank 0 writes; on a mesh the
+leaves it writes are whole (``export_flax_params``, ``parallel.
+full_state_dict``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .dist import is_primary
 from .weights import export_flax_params, load_flax_params
 
 KD_HEAD_NAMES = (
@@ -55,7 +58,8 @@ def save_reference_checkpoint(model: nn.Module, path: str, epoch: int = 0,
     states = {"vln_bert": {"epoch": int(epoch), "state_dict": state_dict}}
     if optimizer_state is not None:
         states["vln_bert"]["optimizer"] = optimizer_state
-    torch.save(states, path)
+    if is_primary():
+        torch.save(states, path)
 
 
 def load_reference_checkpoint(
@@ -127,9 +131,10 @@ class CheckpointManager:
         """Write ``tree`` under ``name`` (replacing it whole: a crash
         mid-write leaves the previous file)."""
         path = self._path(name)
-        tmp = path + ".tmp"
-        torch.save(tree, tmp)
-        os.replace(tmp, path)
+        if is_primary():
+            tmp = path + ".tmp"
+            torch.save(tree, tmp)
+            os.replace(tmp, path)
         return path
 
     def restore(self, name: str, map_location="cpu"):

@@ -4,7 +4,8 @@ tensorboard.
 Covers the reference's logging surface (reference: map_nav_src/utils/
 logger.py:8-80 write_to_record_file/Timer/progress; pretrain_src/utils/
 logger.py:27-95 TensorboardLogger/RunningMeter; main_nav.py:371-430 scalar
-logging) in one module.  A copy of ``vln_magic_tpu/utils/logging.py``.
+logging) in one module.  A copy of ``vln_magic_tpu/utils/logging.py``,
+except that with several processes only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -15,8 +16,14 @@ import sys
 import time
 from collections import defaultdict
 
+from .dist import is_primary
+
 
 def write_to_record_file(data: str, file_path: str, verbose: bool = True):
+    """Print ``data`` and append it to ``file_path``; with several
+    processes only rank 0 does."""
+    if not is_primary():
+        return
     if verbose:
         print(data)
     with open(file_path, "a") as f:
@@ -61,10 +68,12 @@ class MetricsLogger:
 
     def __init__(self, log_dir: str, tensorboard: bool = True):
         os.makedirs(log_dir, exist_ok=True)
+        # with several processes only rank 0 writes
+        self.primary = is_primary()
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self.meters = {}
         self.tb = None
-        if tensorboard:
+        if tensorboard and self.primary:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -82,8 +91,9 @@ class MetricsLogger:
             rec[k] = v
             if self.tb is not None:
                 self.tb.add_scalar(k, v, step)
-        with open(self.path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        if self.primary:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
         return rec
 
     def close(self):

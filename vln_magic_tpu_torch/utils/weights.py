@@ -8,7 +8,8 @@ LayerNorm ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``,
 learned ability weights ``kdl_*_weight``) -> the parameter of that name.
 ``models.vlnbert.Critic`` names its layers ``Dense_0``/``Dense_1``, as flax
 does.  ``utils.checkpoint`` reads and writes the same names in the reference
-``.pt`` container.
+``.pt`` container.  On a mesh (``parallel.shard_params``) the exports
+gather each split leaf whole, a collective every mp rank calls.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..models.vlnbert import KD_WEIGHT_INIT
+from ..parallel.sharding import full_tensor
 
 
 def _flax_names(model: nn.Module) -> dict[str, tuple[torch.Tensor, bool]]:
@@ -80,8 +82,8 @@ def export_flax_params(model: nn.Module) -> dict[str, np.ndarray]:
     out = {}
     for name, (param, transpose) in _flax_names(model).items():
         # a copy: an f32 CPU parameter's numpy view would follow its
-        # updates
-        x = param.detach().to("cpu", torch.float32, copy=True)
+        # updates; a leaf split over a mesh's mp ranks is gathered whole
+        x = full_tensor(param).to("cpu", torch.float32, copy=True)
         out[name] = (x.t() if transpose else x).contiguous().numpy()
     return out
 
@@ -93,7 +95,8 @@ def flax_named_grads(model: nn.Module) -> dict[str, torch.Tensor]:
     out = {}
     for name, (param, transpose) in _flax_names(model).items():
         g = param.grad if param.grad is not None else torch.zeros_like(param)
-        out[name] = g.detach().t() if transpose else g.detach()
+        g = full_tensor(param, g)       # whole, where a mesh split it
+        out[name] = g.t() if transpose else g
     return out
 
 
