@@ -131,12 +131,14 @@ def test_nan_guard():
 
 def test_trace_names_its_regions(tmp_path):
     with tprof.trace(str(tmp_path)) as prof:
-        with tprof.annotate("vln_region"):
+        with tprof.span("vln_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "vln_region" in names
-    assert any(e.key == "vln_region" for e in prof.key_averages())
+    assert {"vln_region", "aten::mm"} <= names
+    # a span is the program's own record, not a profiler event
+    keys = {e.key for e in prof.key_averages()}
+    assert "aten::mm" in keys and "vln_region" not in keys
 
 
 def test_step_timer_and_memory_stats():

@@ -14,6 +14,7 @@ from ..env.world import World
 from ..models.vlnbert import DualScaleVLNBert
 from ..parallel.sharding import all_gather, all_reduce_tensors, shard_params
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.weights import init_params, load_flax_params
 from .evaluator import (Evaluator, build_trajectories,
                         build_trajectories_observed)
@@ -102,20 +103,22 @@ class Navigator:
         """Decode ``items`` as one wave: (the episode state, the rollout's
         aux).  On a mesh the state is this rank's dp rows, and the aux,
         with the rows' ``stop_scores``, is gathered whole."""
-        txt_ids, txt_masks = pad_instructions(items, self.cfg.env.max_instr_len)
-        mesh = self.mesh
-        if mesh is not None:
-            rows = mesh.rows(len(items))
-            items, txt_ids, txt_masks = (items[rows], txt_ids[rows],
-                                         txt_masks[rows])
-        state = episodes_from_items(
-            self.tables, items, self.cfg.model.hidden_size,
-            observed_parity=self.cfg.env.observed_graph_parity)
+        with span("eval.prepare"):
+            txt_ids, txt_masks = pad_instructions(
+                items, self.cfg.env.max_instr_len)
+            mesh = self.mesh
+            if mesh is not None:
+                rows = mesh.rows(len(items))
+                items, txt_ids, txt_masks = (items[rows], txt_ids[rows],
+                                             txt_masks[rows])
+            state = episodes_from_items(
+                self.tables, items, self.cfg.model.hidden_size,
+                observed_parity=self.cfg.env.observed_graph_parity)
+            txt_ids = torch.from_numpy(txt_ids).to(self.device)
+            txt_masks = torch.from_numpy(txt_masks).to(self.device)
         with (mesh.active() if mesh is not None else nullcontext()):
-            aux = self.rollout.run(
-                state, torch.from_numpy(txt_ids).to(self.device),
-                torch.from_numpy(txt_masks).to(self.device), feedback,
-                ensemble_n=ensemble_n, zdicts=zdicts)
+            aux = self.rollout.run(state, txt_ids, txt_masks, feedback,
+                                   ensemble_n=ensemble_n, zdicts=zdicts)
         if mesh is not None:
             aux = _gather_aux(aux, state, mesh)
         return state, aux
@@ -162,32 +165,20 @@ class Navigator:
             n_real = len(chunk)
             if n_real < bs:
                 chunk = chunk + [chunk[-1]] * (bs - n_real)
-            state, aux = self.run_items(chunk, feedback,
-                                        ensemble_n=ensemble_n, zdicts=zdicts)
-            gmap_overflow += int(aux["gmap_overflow"])
-            semantic_steps += int(aux["semantic_steps"])
-            host = {k: v.cpu().numpy() for k, v in aux.items()}
-            if parity:
-                chunk_preds = build_trajectories_observed(
-                    self.world, chunk, host["actions"], host["traj_nodes"],
-                    host["traj_len"], host["stop_node"], host["final_cur"])
-            else:
-                chunk_preds = build_trajectories(
-                    self.world, chunk, host["actions"], host["stop_node"],
-                    host["final_cur"])
-            chunk_preds = chunk_preds[:n_real]
-            if detailed_output:
-                scores = host.get("stop_scores")
-                if scores is None:
-                    scores = state.stop_scores.cpu().numpy()
-                for b, p in enumerate(chunk_preds):
-                    g = self.world.graphs[p["scan_idx"]]
-                    p["details"] = {
-                        g.node_ids[i]: {"stop_prob": float(scores[b, i])}
-                        for i in np.flatnonzero(
-                            scores[b, : g.num_nodes] > -1e8)}
-            preds.extend(chunk_preds)
-        avg, per_item = Evaluator(self.world, items).eval_metrics(preds)
+            with span("eval.wave"):
+                state, aux = self.run_items(chunk, feedback,
+                                            ensemble_n=ensemble_n,
+                                            zdicts=zdicts)
+                # the wait for the device, then the copies
+                with span("eval.fetch"):
+                    gmap_overflow += int(aux["gmap_overflow"])
+                    semantic_steps += int(aux["semantic_steps"])
+                    host = {k: v.cpu().numpy() for k, v in aux.items()}
+                with span("eval.trajectories"):
+                    preds.extend(self._trajectories(
+                        chunk, n_real, host, state, detailed_output))
+        with span("eval.score"):
+            avg, per_item = Evaluator(self.world, items).eval_metrics(preds)
         # episodes whose observed-node count outgrew max_gmap_len (tokens
         # truncated), the live episode-steps decoded (padding included) and
         # the steps the lanes ran
@@ -196,6 +187,29 @@ class Navigator:
         avg["scan_steps"] = float(-(-len(items) // bs)
                                   * self.cfg.env.max_action_len)
         return (avg, per_item), preds
+
+    def _trajectories(self, chunk, n_real, host, state, detailed_output):
+        """The predictions of a wave's first ``n_real`` items from its
+        decode copied to the host."""
+        if self.cfg.env.observed_graph_parity:
+            preds = build_trajectories_observed(
+                self.world, chunk, host["actions"], host["traj_nodes"],
+                host["traj_len"], host["stop_node"], host["final_cur"])
+        else:
+            preds = build_trajectories(
+                self.world, chunk, host["actions"], host["stop_node"],
+                host["final_cur"])
+        preds = preds[:n_real]
+        if detailed_output:
+            scores = host.get("stop_scores")
+            if scores is None:
+                scores = state.stop_scores.cpu().numpy()
+            for b, p in enumerate(preds):
+                g = self.world.graphs[p["scan_idx"]]
+                p["details"] = {
+                    g.node_ids[i]: {"stop_prob": float(scores[b, i])}
+                    for i in np.flatnonzero(scores[b, : g.num_nodes] > -1e8)}
+        return preds
 
     def stream_eval(self, batch_size=None):
         """The continuous-batching decoder, cached per lane width."""

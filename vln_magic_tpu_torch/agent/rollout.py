@@ -61,6 +61,7 @@ from ..config import EnvConfig, ModelConfig
 from ..env.world import WorldTables
 from ..parallel.mesh import dp_any, draw_uniform
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import distill as D
 from . import geometry as geo
 from . import losses as L
@@ -982,26 +983,30 @@ class Rollout:
         zd = zd or {}
         drop = {"deterministic": deterministic, "generator": generator,
                 "need_maps": need_maps}
-        pano_embeds, pano_fused, img_attns = self._apply_mc(
-            model.panorama, ensemble_n, drop, pano["view_img_fts"],
-            pano["loc_fts"], pano["nav_types"], pano["pano_masks"],
-            z_img_feats=zd.get("z_img_feats"),
-            z_img_pzs=zd.get("z_img_pzs"))
-        # the episode state stays f32 whatever the model's dtype
-        self.update_node_embeds(state, pano_embeds.float(),
-                                pano_fused.float(), pano["cand_ids"],
-                                pano["cand_mask"], role)
-        gmap = self.assemble_gmap(state, gmap_base, role)
-        vp = self.assemble_vp(state, pano_embeds, vp_base, role)
-        outs = self._apply_mc(
-            model.navigation, ensemble_n, drop, txt_embeds, txt_masks,
-            gmap["gmap_img_embeds"], gmap["gmap_step_ids"],
-            gmap["gmap_pos_fts"], gmap["gmap_masks"],
-            gmap["gmap_visited_masks"], gmap["gmap_pair_dists"],
-            vp["vp_img_embeds"], vp["vp_pos_fts"], vp["vp_masks"],
-            vp["vp_nav_masks"], vp["gmap_local_slot"], vp["vp_cand_visited"],
-            txt_cross_kvs=txt_kv, front_vp_feats=zd.get("front_vp_feats"),
-            front_gmap_feats=zd.get("front_gmap_feats"))
+        with span("rollout.panorama"):
+            pano_embeds, pano_fused, img_attns = self._apply_mc(
+                model.panorama, ensemble_n, drop, pano["view_img_fts"],
+                pano["loc_fts"], pano["nav_types"], pano["pano_masks"],
+                z_img_feats=zd.get("z_img_feats"),
+                z_img_pzs=zd.get("z_img_pzs"))
+        with span("rollout.map"):
+            # the episode state stays f32 whatever the model's dtype
+            self.update_node_embeds(state, pano_embeds.float(),
+                                    pano_fused.float(), pano["cand_ids"],
+                                    pano["cand_mask"], role)
+            gmap = self.assemble_gmap(state, gmap_base, role)
+            vp = self.assemble_vp(state, pano_embeds, vp_base, role)
+        with span("rollout.navigation"):
+            outs = self._apply_mc(
+                model.navigation, ensemble_n, drop, txt_embeds, txt_masks,
+                gmap["gmap_img_embeds"], gmap["gmap_step_ids"],
+                gmap["gmap_pos_fts"], gmap["gmap_masks"],
+                gmap["gmap_visited_masks"], gmap["gmap_pair_dists"],
+                vp["vp_img_embeds"], vp["vp_pos_fts"], vp["vp_masks"],
+                vp["vp_nav_masks"], vp["gmap_local_slot"],
+                vp["vp_cand_visited"], txt_cross_kvs=txt_kv,
+                front_vp_feats=zd.get("front_vp_feats"),
+                front_gmap_feats=zd.get("front_gmap_feats"))
         setattr(state, ROLE_PREFIX[role] + "mem", outs["cls_embeds"].float())
         outs.update({"pano_embeds": pano_embeds,
                      "pano_fused_embeds": pano_fused, "img_attns": img_attns})
@@ -1022,23 +1027,28 @@ class Rollout:
         Returns (chosen target per lane, -1 when not moving; lanes live at
         the top of the step; lanes that ended in it; the action taken, a
         gmap token index)."""
-        live0 = self._stamp(state, lane_t)
-        pano = self.assemble_pano(state)
-        gmap_base = self.assemble_gmap_base(state, ep)
-        vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
-        gmap, outs = self._model_step(self.model, "student", state, pano,
-                                      gmap_base, vp_base, txt_embeds,
-                                      txt_masks, txt_kv, generator=generator,
-                                      zd=zd, ensemble_n=ensemble_n)
-        logits = outs[self.policy_key]
-        targets = (self._targets(state, gmap, pano, lane_t, True, ep)
-                   if feedback == "teacher" else None)
-        action = self.select_action(logits, feedback, generator, targets,
-                                    gmap, self._explore_mask(vp_base))
-        stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
-        chosen = self.transition(state, gmap, action, stop_prob, lane_t, pano,
-                                 ep, self.local_acts, feedback, defer_observe)
-        return chosen, live0, state.ended & live0, action
+        with span("rollout.step"):
+            live0 = self._stamp(state, lane_t)
+            with span("rollout.observe"):
+                pano = self.assemble_pano(state)
+                gmap_base = self.assemble_gmap_base(state, ep)
+                vp_base = self.assemble_vp_base(state, pano, gmap_base, ep)
+            gmap, outs = self._model_step(
+                self.model, "student", state, pano, gmap_base, vp_base,
+                txt_embeds, txt_masks, txt_kv, generator=generator, zd=zd,
+                ensemble_n=ensemble_n)
+            logits = outs[self.policy_key]
+            targets = (self._targets(state, gmap, pano, lane_t, True, ep)
+                       if feedback == "teacher" else None)
+            with span("rollout.act"):
+                action = self.select_action(logits, feedback, generator,
+                                            targets, gmap,
+                                            self._explore_mask(vp_base))
+                stop_prob = torch.softmax(logits, dim=-1)[:, 0].float()
+                chosen = self.transition(state, gmap, action, stop_prob,
+                                         lane_t, pano, ep, self.local_acts,
+                                         feedback, defer_observe)
+            return chosen, live0, state.ended & live0, action
 
     def run(self, state: EpisodeBatch, txt_ids, txt_masks,
             feedback: str = "argmax", ensemble_n: int = 1, *, seed: int = 0,
@@ -1128,11 +1138,12 @@ class Rollout:
     @torch.no_grad()
     def _decode(self, state, txt_ids, txt_masks, feedback, seed, zd,
                 ensemble_n):
-        txt_embeds, _ = self.model.language(
-            txt_ids, txt_masks, instr_zdict=zd.get("instr_zdict"),
-            front_txt_feats=zd.get("front_txt_feats"))
-        txt_kv = self.hoisted_kv(self.model, txt_embeds)
-        ep = self.episode_tables(state)
+        with span("rollout.language"):
+            txt_embeds, _ = self.model.language(
+                txt_ids, txt_masks, instr_zdict=zd.get("instr_zdict"),
+                front_txt_feats=zd.get("front_txt_feats"))
+            txt_kv = self.hoisted_kv(self.model, txt_embeds)
+            ep = self.episode_tables(state)
         draws = feedback in ("sample", "expl_sample") or ensemble_n > 1
         actions, live_n = [], []
         for t_step in range(self.env.max_action_len):

@@ -76,6 +76,7 @@ from ..env import geometry as geo
 from ..models.vlnbert import DualScaleVLNBert
 from ..utils import quantize as Q
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.weights import export_flax_params, load_flax_params
 from .interventions import flat_zdicts, nested_zdicts, zdicts_on
 from .rollout import (EpisodeBatch, Rollout, Tables, _observe, init_episodes,
@@ -834,14 +835,15 @@ class NavFleet(NavServer):
 
     def _join_slot(self, slot: int, ids_buf):
         """Encode the instruction into the slot's text buffers, in place."""
-        emb, mask, kv = self._lang(ids_buf)
-        if self._txt is None:
-            grow = lambda x: x.new_zeros((self.k,) + x.shape[1:])
-            self._txt = (grow(emb), grow(mask), _map_kv(kv, grow))
-        txt_buf, mask_buf, kv_buf = self._txt
-        txt_buf[slot] = emb[0]
-        mask_buf[slot] = mask[0]
-        _map_kv(kv_buf, lambda buf, x: buf[slot].copy_(x[0]), kv)
+        with span("fleet.language"):
+            emb, mask, kv = self._lang(ids_buf)
+            if self._txt is None:
+                grow = lambda x: x.new_zeros((self.k,) + x.shape[1:])
+                self._txt = (grow(emb), grow(mask), _map_kv(kv, grow))
+            txt_buf, mask_buf, kv_buf = self._txt
+            txt_buf[slot] = emb[0]
+            mask_buf[slot] = mask[0]
+            _map_kv(kv_buf, lambda buf, x: buf[slot].copy_(x[0]), kv)
 
     def _empty_state(self) -> EpisodeBatch:
         """The all-lanes holder before any lane has started: every lane
@@ -900,11 +902,12 @@ class NavFleet(NavServer):
     def join(self, instr_encoding) -> FleetSession:
         """Claim a free slot for a new episode (its instruction encoded
         into the fleet's buffers)."""
-        for slot in range(self.k):
-            if slot not in self._sessions:
-                sess = FleetSession(self, slot, instr_encoding)
-                self._sessions[slot] = sess
-                return sess
+        with span("fleet.join"):
+            for slot in range(self.k):
+                if slot not in self._sessions:
+                    sess = FleetSession(self, slot, instr_encoding)
+                    self._sessions[slot] = sess
+                    return sess
         raise RuntimeError(f"all {self.k} fleet slots busy; release one")
 
     def release(self, slot: int):
@@ -937,7 +940,37 @@ class NavFleet(NavServer):
         """One control tick: check every submission, ingest them, advance
         all of them in one batched step, return their decisions.  A
         rejected submission raises before any session changes."""
-        t0 = time.perf_counter()
+        with span("fleet.step"):
+            t0 = time.perf_counter()
+            with span("fleet.ingest"):
+                host, ctl, pre_lens = self._submissions(obs_by_slot)
+            with span("fleet.upload"):
+                buf = self._upload(host)
+            with span("fleet.decide"):
+                if self._state is None:
+                    self._state = self._empty_state()
+                state, out = self._tick(
+                    buf, self._state,
+                    any(c["is_first"] for c in ctl.values()))
+            with span("fleet.fetch"):
+                out = out.cpu().numpy()          # the one device-to-host copy
+            self._state = state
+            self._pending_rows.clear()
+            latency = (time.perf_counter() - t0) * 1000.0
+            decisions = {}
+            with span("fleet.record"):
+                for slot, obs in obs_by_slot.items():
+                    sess = self._sessions[slot]
+                    sess._started = True
+                    decisions[slot] = sess._record(out[slot], obs,
+                                                   pre_lens[slot], latency)
+            return decisions
+
+    def _submissions(self, obs_by_slot):
+        """Check every submission, then fold each into its session's
+        mirrors: (the tick's upload [K, width], each submitting slot's
+        control values, its trajectory length before the tick).  A rejected
+        submission raises before any session changes."""
         for slot, obs in obs_by_slot.items():
             sess = self._sessions.get(slot)
             if sess is None:
@@ -960,28 +993,16 @@ class NavFleet(NavServer):
         for slot, sess in self._sessions.items():
             self._fill(host[slot], ctl.get(slot, {}), sess._pack_mirrors(),
                        self._pending_rows.get(slot))
-        buf = self._upload(host)
-        if self._state is None:
-            self._state = self._empty_state()
-        state, out = self._tick(buf, self._state,
-                                any(c["is_first"] for c in ctl.values()))
-        out = out.cpu().numpy()          # the one device-to-host copy
-        self._state = state
-        self._pending_rows.clear()
-        latency = (time.perf_counter() - t0) * 1000.0
-        decisions = {}
-        for slot, obs in obs_by_slot.items():
-            sess = self._sessions[slot]
-            sess._started = True
-            decisions[slot] = sess._record(out[slot], obs, pre_lens[slot],
-                                           latency)
-        return decisions
+        return host, ctl, pre_lens
 
     def finish(self, slot: int) -> dict:
-        sess = self._sessions[slot]
-        if not sess._started:
-            raise RuntimeError("no steps taken")
-        return sess._final(self._finish_traj(
-            self._upload(sess._pack_mirrors()[None]),
-            self._features[slot:slot + 1],
-            self._lane_state(slot))[0].cpu().numpy())
+        with span("fleet.finish"):
+            sess = self._sessions[slot]
+            if not sess._started:
+                raise RuntimeError("no steps taken")
+            with span("fleet.walk"):
+                out = self._finish_traj(
+                    self._upload(sess._pack_mirrors()[None]),
+                    self._features[slot:slot + 1], self._lane_state(slot))
+            with span("fleet.fetch"):
+                return sess._final(out[0].cpu().numpy())

@@ -4,7 +4,8 @@ tensorboard.
 Covers the reference's logging surface (reference: map_nav_src/utils/
 logger.py:8-80 write_to_record_file/Timer/progress; pretrain_src/utils/
 logger.py:27-95 TensorboardLogger/RunningMeter; main_nav.py:371-430 scalar
-logging) in one module.  A copy of ``vln_magic_tpu/utils/logging.py``,
+logging) in one module.  A copy of ``vln_magic_tpu/utils/logging.py``
+without its ``Timer`` (the program's spans are ``utils.profiling.span``),
 except that with several processes only rank 0 writes.
 """
 
@@ -12,9 +13,6 @@ from __future__ import annotations
 
 import json
 import os
-import sys
-import time
-from collections import defaultdict
 
 from .dist import is_primary
 
@@ -28,24 +26,6 @@ def write_to_record_file(data: str, file_path: str, verbose: bool = True):
         print(data)
     with open(file_path, "a") as f:
         f.write(data + "\n")
-
-
-class Timer:
-    def __init__(self):
-        self.t0 = time.time()
-        self.acc = defaultdict(float)
-        self._open = {}
-
-    def tic(self, name):
-        self._open[name] = time.time()
-
-    def toc(self, name):
-        self.acc[name] += time.time() - self._open.pop(name)
-
-    def show(self):
-        total = time.time() - self.t0
-        parts = ", ".join(f"{k}: {v:.1f}s" for k, v in self.acc.items())
-        return f"total {total:.1f}s ({parts})"
 
 
 class RunningMeter:
