@@ -5,7 +5,7 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, the torch and CUDA
-   versions, and the time to build both CUDA kernels from
+   versions, and the time to build the three CUDA kernels from
    vln_magic_tpu_torch/csrc/ with nvcc for sm_90a (one nvcc per source,
    started together), and ptxas' registers and spills of each instantiation
    of the fused kernel's tensor-core route;
@@ -20,7 +20,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    time and, as a yardstick only, ``scaled_dot_product_attention`` on the
    same inputs.  Every time in phases 2 and 7 is device time, from a CUDA
    graph of 20 calls (``time_ms``); the packed kernel's rows also give its
-   time through the wrapper as a caller pays it (``eager_ms``);
+   time through the wrapper as a caller pays it (``eager_ms``); then the
+   observed-subgraph walk's kernel (``ops.walk``) against the torch loop
+   (``Rollout._walk_loop``) on the same card tensors, exactly, at the
+   parity wave's transition and backtrack (B 256, 16 and 32 hops), the
+   fleet's ticks (K 8, 64), a finish (B 1) and 40 candidate slots, one
+   launch a walk, with both their times (``WALK_SHAPES``);
 3. golden decodes: the pinned tests/golden_decode.json and
    tests/golden_decode_parity.json trajectories, in f32 with the kernel
    on (the SIMT route), from the weights in tests/fixtures/; and the same
@@ -29,13 +34,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    (hidden 128, 2 heads, 6/2/3 layers, CLIP-768 features, 200-token
    instructions, gmap 128, T 15, 3 scans x 320 nodes), bf16, random
    weights from a seed; the kernel must launch 216 times per wave, every
-   launch on the tensor-core route;
+   launch on the tensor-core route, and the walk kernel never;
 5. streaming: the same navigator streams 1,024 items over its 256 lanes;
    ``packed_attention`` must launch 6 times per language batch and 14 per
    step, all on the tensor-core route, and the share of episodes equal to
    the wave decode is reported;
 6. parity: one wave of 256 items with observed-graph parity on, 216
-   tensor-core launches;
+   tensor-core launches and 16 of the walk kernel (15 transitions, one
+   backtrack); a second wave's first transition and backtrack walks
+   replayed on the torch loop, equal;
 7. fused kernel vs plain: ``fused_attention`` against its plain version at
    the MAGIC-S and MAGIC teacher head layouts at the six path shapes and at
    edge shapes, in f32 and bf16, with its time, bound and plain time.  Out
@@ -91,10 +98,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     one 64-node scan): ``warmup()``, then episodes until 200 decisions are
     measured (the first episode left out), ms per decision and per session
     start, 6 ``packed_attention`` launches a session start and 14 a
-    decision, all on the tensor-core route; fleets of K 8 and 64 (rounds of
-    K episodes until 200 ticks are measured, round 0 left out), ms per tick
-    and per decision, 14 launches a tick, the share of decisions equal to
-    standalone sessions (bf16: reported); every ``packed_attention`` call
+    decision, all on the tensor-core route, and one walk launch a decision
+    and one a finish; fleets of K 8 and 64 (rounds of K episodes until 200
+    ticks are measured, round 0 left out), ms per tick and per decision, 14
+    launches a tick, one walk launch a tick and one a finish, a decision's,
+    a tick's and a finish's walks replayed on the torch loop, equal; the
+    share of decisions equal to standalone sessions (bf16: reported); every ``packed_attention`` call
     of a session start and two decisions (B 1), and of a fleet's joins and
     two ticks (B 8, B 64), held against the plain version on the same
     tensors as in phase 2 (5e-2 absolute and the exact limit); one decision
@@ -271,6 +280,16 @@ PRETRAIN_TASKS = ("mlm", "mrc", "sap", "cfp")
 PRETRAIN_LAUNCHES = {"mlm": 6, "mrc": 20, "sap": 20, "cfp": 20, "og": 20}
 PRETRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                 "golden_pretrain_11.npz")
+# (name, B, scans, nodes, candidate slots, hops) of the observed-subgraph
+# walk: the parity wave's transition (T + 1 hops) and backtrack at MAGIC-S
+# width, the fleet's ticks at K 8 and 64 and a finish (B 1) on the serve
+# scan, and tables wider than a warp
+WALK_SHAPES = [("parity_transition", MAIN_BATCH, 3, 320, 14, MAIN_T + 1),
+               ("parity_backtrack", MAIN_BATCH, 3, 320, 14, 32),
+               ("fleet_8_tick", 8, 1, SERVE_NODES, 8, MAIN_T + 1),
+               ("fleet_64_tick", 64, 1, SERVE_NODES, 8, MAIN_T + 1),
+               ("finish", 1, 1, SERVE_NODES, 8, 32),
+               ("wide_c40", 64, 3, 48, 40, 32)]
 
 
 def emit(obj):
@@ -526,6 +545,116 @@ def phase_kernel_vs_plain(card):
           "per": f"the six path shapes x their launches ({LAUNCHES_PER_WAVE})",
           **summary, "card": card})
     return summary["bfloat16"]
+
+
+def _walk_cases():
+    """tests/torch_walk_cases.py, the walk's seeded graphs and its two
+    plain versions (the torch loop and the NumPy reference)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_walk_cases
+
+    return torch_walk_cases
+
+
+def _walk_equal(what, case):
+    """The kernel's walk (one launch) against the torch loop on the same
+    card tensors, exactly; returns (the kernel's (prev, ln, nodes), the
+    mean hops a lane took)."""
+    from vln_magic_tpu_torch.ops.walk import observed_walk
+
+    W = _walk_cases()
+    n0 = observed_walk.launches
+    got = W.rollout_walk(*case)
+    loop = W.loop_walk(*case)
+    torch.cuda.synchronize()
+    if observed_walk.launches - n0 != 1:
+        raise AssertionError(f"walk {what}: {observed_walk.launches - n0} "
+                             f"kernel launches, want 1")
+    for name, g, w in zip(("prev", "ln", "nodes"), got, loop):
+        if not torch.equal(g, w):
+            raise AssertionError(f"walk {what}: {name} differs from the "
+                                 f"torch loop on the same tensors")
+    return got, (got[1] - case[5]).float().mean().item()
+
+
+def phase_walk_vs_plain(card):
+    """Phase 2 (b): the observed-subgraph walk's kernel against the torch
+    loop (``Rollout._walk_loop``) on the same card tensors at each of
+    ``WALK_SHAPES``, two seeded graphs a shape (the odd seed's noisy
+    distances make walks cycle to the hop bound), exactly, with one launch
+    a walk; each row gives the kernel's device time (``time_ms``) and its
+    time as a caller pays it, and the loop's both."""
+    W = _walk_cases()
+    rows = []
+    for i, (name, b, scans, n, c, hops) in enumerate(WALK_SHAPES):
+        for seed in (2 * i, 2 * i + 1):
+            case = W.make_case(seed, b, c, n=n, s=scans,
+                               chords=n * c if c > 32 else None,
+                               device="cuda")[:-1] + (hops,)
+            _, mean_hops = _walk_equal(f"{name} seed {seed}", case)
+            tables, state, target, moving, nodes, ln, _ = case
+            r, out = W.walker(tables), nodes.clone()  # each call writes alike
+            kernel = lambda: r._walk_observed(state, target, moving, hops,
+                                              out, ln)
+            loop = lambda: r._walk_loop(state, target, moving, hops, out, ln)
+            row = {"phase": "walk_vs_plain", "shape": name, "seed": seed,
+                   "B": b, "N": n, "C": c, "hops": hops,
+                   "mean_hops_taken": mean_hops, "equal_to_loop": True,
+                   "ms": time_ms(kernel), "eager_ms": eager_ms(kernel),
+                   "plain_ms": time_ms(loop), "plain_eager_ms": eager_ms(loop),
+                   "card": card}
+            rows.append(row)
+            emit(row)
+    return rows
+
+
+@contextlib.contextmanager
+def _captured_walks():
+    """Inside, each ``Rollout._walk_observed`` call's inputs are cloned
+    before it runs, the first call at each (batch, hops) only; yields the
+    dict of them, each a case as ``_walk_equal`` takes it."""
+    from types import SimpleNamespace
+
+    from vln_magic_tpu_torch.agent.rollout import Rollout
+
+    real, seen = Rollout._walk_observed, {}
+
+    def capture(self, state, target, moving, hops, nodes, ln):
+        key = (state.batch_size, hops)
+        if key not in seen:
+            c = torch.clone
+            seen[key] = (
+                SimpleNamespace(cand_ids=c(self.t.cand_ids),
+                                cand_mask=c(self.t.cand_mask),
+                                cand_dist=c(self.t.cand_dist)),
+                SimpleNamespace(batch_size=state.batch_size,
+                                scan=c(state.scan), cur=c(state.cur),
+                                visited=c(state.visited),
+                                obs_dist=c(state.obs_dist)),
+                c(target), c(moving), c(nodes), c(ln), hops)
+        return real(self, state, target, moving, hops, nodes, ln)
+
+    Rollout._walk_observed = capture
+    try:
+        yield seen
+    finally:
+        Rollout._walk_observed = real
+
+
+def _check_walks(what, seen, want_keys):
+    """Replay each captured walk: the kernel against the torch loop on the
+    same tensors (``_walk_equal``); ``want_keys``, the (batch, hops) that
+    must have been met.  Returns one row per walk."""
+    if set(seen) != set(want_keys):
+        raise AssertionError(f"{what}: walks at (batch, hops) "
+                             f"{sorted(seen)}, want {sorted(want_keys)}")
+    rows = []
+    for (b, hops), case in sorted(seen.items()):
+        _, mean_hops = _walk_equal(f"{what} B {b} hops {hops}", case)
+        rows.append({"B": b, "hops": hops, "N": case[0].cand_ids.shape[1],
+                     "C": case[0].cand_ids.shape[2],
+                     "mean_hops_taken": mean_hops, "equal_to_loop": True})
+    return rows
 
 
 def golden_config(parity=False, lanes=8):
@@ -819,10 +948,11 @@ def timed_evaluate(nav, items, **kw):
     read just after: (avg, preds, wall seconds, launches)."""
     from vln_magic_tpu_torch.ops.attention import (fused_attention,
                                                    packed_attention)
+    from vln_magic_tpu_torch.ops.walk import observed_walk
 
     torch.cuda.synchronize()
     packed_attention.launches = packed_attention.tc_launches = 0
-    fused_attention.launches = 0
+    fused_attention.launches = observed_walk.launches = 0
     t0 = time.perf_counter()
     (avg, _), preds = nav.evaluate(items, **kw)
     torch.cuda.synchronize()
@@ -830,7 +960,8 @@ def timed_evaluate(nav, items, **kw):
     return avg, preds, wall, {
         "packed_attention": packed_attention.launches,
         "packed_attention_tensor_core": packed_attention.tc_launches,
-        "fused_attention": fused_attention.launches}
+        "fused_attention": fused_attention.launches,
+        "observed_walk": observed_walk.launches}
 
 
 def check_tensor_cores(what, launches):
@@ -853,6 +984,10 @@ def phase_main_path(card):
         raise AssertionError(f"packed_attention launched {launches} times, "
                              f"want {LAUNCHES_PER_WAVE} x {waves}")
     check_tensor_cores("main path", launches)
+    if launches["observed_walk"]:
+        raise AssertionError(f"main path: the walk kernel launched "
+                             f"{launches['observed_walk']} times, want 0 "
+                             f"(no observed-graph parity)")
     check_decode(nav.world, items, avg, preds)
     emit({"phase": "main_path", "batch": batch, "waves": waves,
           "T": t_steps, "setup_s": setup_s, "wall_s": wall,
@@ -911,19 +1046,31 @@ def phase_parity(card, wave_nav, items):
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     avg, preds, wall, launches = timed_evaluate(nav, items)
-    if launches["packed_attention"] != LAUNCHES_PER_WAVE:
-        raise AssertionError(f"parity launched packed_attention "
-                             f"{launches['packed_attention']} times, want "
-                             f"{LAUNCHES_PER_WAVE}")
+    # one walk a step's transition and one for the backtrack
+    if (launches["packed_attention"], launches["observed_walk"]) != (
+            LAUNCHES_PER_WAVE, MAIN_T + 1):
+        raise AssertionError(f"parity launched (packed_attention, "
+                             f"observed_walk) {launches}, want "
+                             f"({LAUNCHES_PER_WAVE}, {MAIN_T + 1})")
     check_tensor_cores("parity", launches)
     check_decode(nav.world, items, avg, preds)
+    peak = torch.cuda.max_memory_allocated()
+    # the wave again, its first transition's and its backtrack's walks
+    # replayed on the torch loop
+    with _captured_walks() as seen:
+        _, again = nav.evaluate(items)
+    same = sum(a["trajectory_idx"] == b["trajectory_idx"]
+               for a, b in zip(again, preds)) / len(preds)
+    walks = _check_walks("parity", seen, [(MAIN_BATCH, MAIN_T + 1),
+                                          (MAIN_BATCH, 32)])   # WALK_HOPS
     emit({"phase": "parity", "batch": MAIN_BATCH, "T": MAIN_T,
           "wall_s": wall,
           "semantic_steps_per_s": avg["semantic_steps"] / wall,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_memory_gb": peak / 1e9,
           "resident_before_gb": resident / 1e9,
-          "metrics": avg, "kernels": launches, "card": card})
-    return launches["packed_attention"]
+          "metrics": avg, "kernels": launches, "walks": walks,
+          "share_equal_on_second_wave": same, "card": card})
+    return launches["packed_attention"], launches["observed_walk"], walks
 
 
 def fused_bound(b, h, lq, lk, hd, dtype, full_bias):
@@ -1175,9 +1322,11 @@ def device_breakdown(prof, wall_ms, top=10):
 def _reset_launches():
     from vln_magic_tpu_torch.ops.attention import (fused_attention,
                                                    packed_attention)
+    from vln_magic_tpu_torch.ops.walk import observed_walk
 
     packed_attention.launches = packed_attention.tc_launches = 0
     fused_attention.launches = fused_attention.tc_launches = 0
+    observed_walk.launches = 0
 
 
 def _launches():
@@ -2067,8 +2216,10 @@ def phase_serving(card):
     kernel's launches counted per session start (6) and per decision or tick
     (14), all on the tensor-core route; each packed call of a session start,
     two decisions, a fleet's joins and two ticks held against the plain
-    version; one decision and one tick under ``torch.profiler`` (copies,
-    device time); an int8 bundle round trip."""
+    version; the walk kernel counted, one launch a decision or tick and one
+    a finish, and a decision's, a tick's and a finish's walks replayed on
+    the torch loop; one decision and one tick under ``torch.profiler``
+    (copies, device time); an int8 bundle round trip."""
     import shutil
     import tempfile
     from collections import Counter
@@ -2078,6 +2229,7 @@ def phase_serving(card):
     from vln_magic_tpu_torch.env import make_synthetic_world
     from vln_magic_tpu_torch.env.synthetic import make_synthetic_instructions
     from vln_magic_tpu_torch.models.vlnbert import DualScaleVLNBert
+    from vln_magic_tpu_torch.ops.walk import observed_walk
     from vln_magic_tpu_torch.utils.weights import init_params
 
     cfg = main_config()
@@ -2110,6 +2262,7 @@ def phase_serving(card):
         return dec
 
     items, lat, starts, counts, lengths, start_ms = [], [], [], [], [], []
+    observed_walk.launches = 0
     while len(lat) < SERVE_DECISIONS:
         it = instructions(1)[0]
         items.append(it)
@@ -2124,6 +2277,12 @@ def phase_serving(card):
         if len(items) > 1:  # episode 0 touches the freshly warmed paths again
             lat += [d.latency_ms for d in decs]
     per_start = cfg.model.num_l_layers            # the language encoder
+    # one walk a decision's transition and one a finish's backtrack
+    session_walks = observed_walk.launches
+    if session_walks != sum(lengths) + len(items):
+        raise AssertionError(f"serving: the walk kernel launched "
+                             f"{session_walks} times over {sum(lengths)} "
+                             f"decisions and {len(items)} finishes")
     bad = [x for x in starts if x != (per_start,) * 2] + \
         [x for x in counts if x != (LAUNCHES_PER_STEP,) * 2]
     if bad:
@@ -2133,9 +2292,17 @@ def phase_serving(card):
                              f"{LAUNCHES_PER_STEP} a decision, all "
                              f"tensor-core")
     it = items[1]
-    _, checked = _checked_packed(lambda: served(
-        world, server.new_session(it["instr_encoding"]), it, 2))
+    def two_decisions():
+        sess = server.new_session(it["instr_encoding"])
+        served(world, sess, it, 2)
+        return sess
+
+    with _captured_walks() as seen:
+        sess, checked = _checked_packed(two_decisions)
+        sess.finish()
     kernel_check = {"session": checked}
+    walk_check = {"session": _check_walks("session", seen,
+                                          [(1, steps + 1), (1, 32)])}
 
     # one decision (and the next, if the episode goes on) under the profiler
     sess = server.new_session(it["instr_encoding"])
@@ -2157,6 +2324,8 @@ def phase_serving(card):
           "decisions_per_episode": dict(sorted(Counter(lengths[1:]).items())),
           "launches_per_session_start": per_start,
           "launches_per_decision": LAUNCHES_PER_STEP, "route": "tensor_core",
+          "walk_launches": session_walks,
+          "walk_launches_per_decision": 1, "walk_launches_per_finish": 1,
           "profiled_decisions": profiled, "card": card})
     serve_launches = sum(n for n, _ in starts + counts)
 
@@ -2165,19 +2334,25 @@ def phase_serving(card):
         fleet = NavFleet(cfg, model=model, slots=k, max_nodes=SERVE_NODES,
                          max_cands=c, device="cuda")
         walls, tick_counts, n_dec, measured, rounds = [], [], 0, None, 0
+        tick_walks, round_walks = [], []
 
         def on_tick(decs):
             from vln_magic_tpu_torch.ops.attention import packed_attention
             if decs is None:
                 packed_attention.launches = packed_attention.tc_launches = 0
+                on_tick.walks = observed_walk.launches
                 return None
             torch.cuda.synchronize()
+            tick_walks.append(observed_walk.launches - on_tick.walks)
             return packed_attention.launches, packed_attention.tc_launches
 
         while len(walls) < FLEET_TICKS:
             f_items = instructions(k)
+            observed_walk.launches = 0
             actions, _, ticks = served_fleet(world, fleet, f_items, steps,
                                              on_tick)
+            # one walk a tick and one a finish
+            round_walks.append((observed_walk.launches, len(ticks) + k))
             tick_counts += [x for _, _, x in ticks]
             if rounds > 0:  # round 0 pays the first calls at these shapes
                 walls += [ms for ms, _, _ in ticks]
@@ -2188,6 +2363,11 @@ def phase_serving(card):
             raise AssertionError(f"fleet {k}: (launches, tensor-core) per "
                                  f"tick {sorted(set(tick_counts))}, want "
                                  f"{LAUNCHES_PER_STEP} tensor-core")
+        if set(tick_walks) != {1} or any(a != b for a, b in round_walks):
+            raise AssertionError(f"fleet {k}: walk launches a tick "
+                                 f"{sorted(set(tick_walks))}, (a round, want) "
+                                 f"{round_walks[:5]}; want one a tick and "
+                                 f"one a finish")
         fleet_launches += sum(n for n, _ in tick_counts)
         # the same items as K standalone sessions (bf16: reported)
         equal = total = 0
@@ -2196,9 +2376,12 @@ def phase_serving(card):
                              it, steps)
             total += max(len(want), len(got))
             equal += sum(a == b for a, b in zip(want, got))
-        _, checked = _checked_packed(lambda: served_fleet(
-            world, fleet, instructions(k), 2))
+        with _captured_walks() as seen:
+            _, checked = _checked_packed(lambda: served_fleet(
+                world, fleet, instructions(k), 2))
         kernel_check[f"fleet_{k}"] = checked
+        walk_check[f"fleet_{k}"] = _check_walks(
+            f"fleet {k}", seen, [(k, steps + 1), (1, 32)])
         # one tick under the profiler
         f_items = instructions(k)
         sessions = [fleet.join(it["instr_encoding"]) for it in f_items]
@@ -2214,6 +2397,9 @@ def phase_serving(card):
                      "decisions": n_dec, "ticks": len(walls),
                      "rounds_measured": rounds - 1,
                      "launches_per_tick": LAUNCHES_PER_STEP,
+                     "walk_launches": sum(a for a, _ in round_walks),
+                     "walk_launches_per_tick": 1,
+                     "walk_launches_per_finish": 1,
                      "share_equal_to_sessions": equal / total,
                      "feature_bank_mb": fleet._features.numel() * 4 / 1e6,
                      "profiled_tick": tick_prof}
@@ -2221,7 +2407,7 @@ def phase_serving(card):
               **fleets[k], "route": "tensor_core", "card": card})
         del fleet
     emit({"phase": "serving_kernel_check", "tol": BF16_TOL,
-          "paths": kernel_check, "card": card})
+          "paths": kernel_check, "walks": walk_check, "card": card})
 
     # deployment bundles: f32 and int8, the int8 one served to finish()
     tmp = tempfile.mkdtemp(dir=attention_build_dir())
@@ -2252,6 +2438,8 @@ def phase_serving(card):
     worst = lambda key: max(r[key] for rows in kernel_check.values()
                             for r in rows)
     return {"serve": serve_launches, "fleet": fleet_launches,
+            "serve_walks": session_walks, "walk_check": walk_check,
+            "fleet_walks": sum(f["walk_launches"] for f in fleets.values()),
             "session": lat, "fleets": fleets,
             "checked_max_abs_err": worst("max_abs_err"),
             "checked_exact_limit_used": worst("exact_limit_used")}
@@ -4377,10 +4565,12 @@ def main():
     card = card_line()
     phase_card_and_build(card)
     packed = phase_kernel_vs_plain(card)
+    walk_rows = phase_walk_vs_plain(card)
     phase_golden(card)
     nav, items, wave_launches = phase_main_path(card)
     stream_launches = phase_streaming(card, nav)
-    parity_launches = phase_parity(card, nav, items)
+    parity_launches, parity_walks_launched, parity_walks = phase_parity(
+        card, nav, items)
     fused = phase_fused(card)
     train_launches = phase_training(card, nav.world)
     phase_golden_train(card)
@@ -4512,7 +4702,22 @@ def main():
         "cli_note": cli_note,
         "per": "its entry point once at each of the six MAGIC-S path "
                "shapes (6 launches, bf16, tensor-core route); no model path "
-               "calls it, the train step included"}]})
+               "calls it, the train step included"}, {
+        "name": "observed_walk", "route": "cuda",
+        "source": "vln_magic_tpu_torch/csrc/observed_walk.cu",
+        "replaces": "no TPU kernel: the fori_loop walks over _observed_next "
+                    "(vln_magic_tpu/agent/rollout.py:929, :1555)",
+        "equal_to_loop": True,
+        "by_shape": {f"{r['shape']}_seed{r['seed']}": {
+            k: r[k] for k in ("B", "C", "hops", "mean_hops_taken", "ms",
+                              "eager_ms", "plain_ms", "plain_eager_ms")}
+            for r in walk_rows},
+        "replayed": {"parity": parity_walks, **serve["walk_check"]},
+        "launches_by_path": {"parity": parity_walks_launched,
+                             "serve": serve["serve_walks"],
+                             "fleet": serve["fleet_walks"]},
+        "per": "one launch a transition of a parity or served step and one "
+               "a backtrack (finish); the eval paths launch none"}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -38,8 +38,9 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def build_setup(device):
+    """The golden world, its weights, six items and each item's standalone
+    session run on ``device``."""
     world = make_synthetic_world(num_scans=2, nodes_per_scan=20, feat_dim=24,
                                  seed=777)
     cfg = MagicConfig(
@@ -58,18 +59,24 @@ def setup():
     for it in items:
         it["instr_encoding"] = rng.integers(4, 400, INSTR_LEN).astype(np.int32)
     s = {"world": world, "cfg": cfg, "params": params, "items": items,
-         "n": world.tables.max_nodes, "c": world.tables.max_candidates}
+         "n": world.tables.max_nodes, "c": world.tables.max_candidates,
+         "device": device}
     server = NavServer(cfg, params, max_nodes=s["n"], max_cands=s["c"],
-                       device="cpu")
+                       device=device)
     s["server"] = server
     s["ref"] = [serve(s, server.new_session(it["instr_encoding"]), it)
                 for it in items]
     return s
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return build_setup("cpu")
+
+
 def fleet(s, slots, **kw):
     return NavFleet(s["cfg"], s["params"], slots=slots, max_nodes=s["n"],
-                    max_cands=s["c"], device="cpu", **kw)
+                    max_cands=s["c"], device=s["device"], **kw)
 
 
 def obs_at(s, item, v):
@@ -108,9 +115,15 @@ def test_fleet_equals_standalone_sessions(setup):
     (per-lane episode start and step clocks), each slot released and
     claimed again when its episode ends: decisions, stops and final
     trajectories equal the standalone sessions'."""
-    s = setup
-    f = fleet(s, 4)
+    f = fleet(setup, 4)
     f.warmup()
+    fleet_equals_standalone(setup, f)
+
+
+def fleet_equals_standalone(s, f):
+    """Serve the six items on the fleet ``f`` and hold each item's
+    decisions, stops and final trajectory to its standalone session's;
+    returns (ticks, finishes)."""
     queue = list(range(len(s["items"])))
     live, cur, actions, finals = {}, {}, {}, {}
     tick = 0
@@ -136,6 +149,7 @@ def test_fleet_equals_standalone_sessions(setup):
     for i, (want, final) in enumerate(s["ref"]):
         assert actions[i] == want, i
         assert finals[i] == final, i
+    return tick, len(finals)
 
 
 def test_frozen_lanes_come_back_bit_for_bit(setup):

@@ -59,6 +59,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import EnvConfig, ModelConfig
 from ..env.world import WorldTables
+from ..ops import walk
+from ..ops.walk import INF_DIST
 from ..parallel.mesh import dp_any, draw_uniform
 from ..utils.device import resolve_device
 from ..utils.profiling import span
@@ -70,7 +72,6 @@ from .interventions import zdicts_on
 BIG = 1_000_000       # obs-order offset separating frontier from visited
 UNOBS = 2_000_000     # obs-order value for unobserved nodes
 NEG_INF = -1e9
-INF_DIST = 1e9        # observed-graph distance of an unreached pair
 MAX_TRAJ = 96         # expanded-trajectory buffer (steps x jump hops)
 WALK_HOPS = 32        # next-hop walk bound (>= any scan diameter)
 
@@ -900,7 +901,21 @@ class Rollout:
         ``target`` over the observed subgraph, at most ``hops`` hops,
         appending each hop to the trajectory ``nodes`` (in place).
         Returns (the node before the target on the walk, the current node
-        where no hop reached it; the new trajectory lengths)."""
+        where no hop reached it; the new trajectory lengths).  CUDA tensors
+        take one launch of the walk kernel (``ops/walk.py``), which stops
+        each lane at its first hop that does not step; the CPU takes
+        ``_walk_loop``."""
+        t = self.t
+        if target.device.type == "cuda":
+            return walk.observed_walk(
+                t.cand_ids, t.cand_mask, t.cand_dist, state.scan, state.cur,
+                target, moving, state.visited, state.obs_dist, nodes, ln, hops)
+        return self._walk_loop(state, target, moving, hops, nodes, ln)
+
+    def _walk_loop(self, state: EpisodeBatch, target, moving, hops, nodes,
+                   ln):
+        """``_walk_observed`` as a torch loop, every hop on every lane,
+        as JAX's ``fori_loop`` walks."""
         bi = torch.arange(state.batch_size, device=target.device)
         dcol = state.obs_dist[bi, target]
         p = prev = state.cur

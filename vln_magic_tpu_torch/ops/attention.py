@@ -12,7 +12,8 @@ H100 and how it is laid out.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a C interface at first use, into ``vln_magic_tpu_torch/build/``, and
-loaded with ctypes.  A CPU tensor takes
+loaded with ctypes; ``build`` and ``_load`` also serve the observed-subgraph
+walk (``ops/walk.py``, ``csrc/observed_walk.cu``).  A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 """
 
@@ -29,7 +30,7 @@ import threading
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("packed_attention", "fused_attention")
+KERNELS = ("packed_attention", "fused_attention", "observed_walk")
 BUILD_DIR = os.path.join(_PKG, "build")
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_FUSED_KEYS = 256          # csrc/fused_attention.cu keeps 8 key tiles
@@ -47,6 +48,8 @@ _SYMBOLS = {
     "fused_attention": {"vln_fused_attention": _FUSED_ARGS,
                         "vln_fused_attention_tc": _FUSED_ARGS,
                         "vln_fused_attention_tc_smem": [ctypes.c_int] * 4},
+    "observed_walk": {"vln_observed_walk": [ctypes.c_void_p] * 2
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
 }
 
 _libs: dict = {}
