@@ -36,17 +36,22 @@ def magic_config(cfg: dict, mix: dict, batch: int):
 
 class Cell:
     """What both drivers share: the traffic (from the run's seed), the
-    weights (from the configuration's ``weights_seed``, drawn on the device,
-    then kept on the host for the reference) and the run's counters."""
+    weights (the names and shapes of the configuration's reference module
+    ``ref``, drawn from the configuration's ``weights_seed`` on the device,
+    then kept on the host for the reference), the module's fixed
+    ``inputs`` (keyword arguments of the program's API, handed to the
+    reference too), the FLOP counts and the run's counters."""
 
-    def __init__(self, cfg: dict, mix: dict, seed: int, device):
+    def __init__(self, cfg: dict, mix: dict, seed: int, device, ref):
         self.cfg, self.mix, self.seed = cfg, mix, seed
         self.device = torch.device(device)
         self.traffic = Traffic(mix, seed)
-        weights = draw(cfg, cfg["compute_dtype"], cfg["weights_seed"],
-                       self.device)
+        weights = draw(ref.param_shapes(cfg["model"]), cfg["compute_dtype"],
+                       cfg["weights_seed"], self.device)
         self.host_weights = to_host(weights)
         del weights
+        self.inputs = ref.inputs(cfg) if hasattr(ref, "inputs") else {}
+        self.instruction_flops, self.step_flops = flops.counts(ref)
         self.packed_calls: list = []
 
     def free(self):
@@ -66,8 +71,8 @@ class EvalCell(Cell):
     """``Navigator.evaluate`` over waves of ``batch`` fresh episodes; the
     measure is live episode-steps decoded per second."""
 
-    def __init__(self, cfg, mix, seed, device):
-        super().__init__(cfg, mix, seed, device)
+    def __init__(self, cfg, mix, seed, device, ref):
+        super().__init__(cfg, mix, seed, device, ref)
         from vln_magic_tpu_torch.agent.navigator import Navigator
         from vln_magic_tpu_torch.env import NavGraph, World
 
@@ -87,12 +92,17 @@ class EvalCell(Cell):
                                  params=self.host_weights,
                                  device=self.device)
         self.record = None
-        self.pano_tokens = world.tables.max_candidates + 36
+        m, lang = cfg["model"], mix["instr_len"]
+        self.wave_flops = self.batch * (
+            self.instruction_flops(m, lang)
+            + mix["max_action_len"] * self.step_flops(
+                m, lang, mix["max_gmap_len"],
+                world.tables.max_candidates + 36))
 
     def wave(self, stream: int):
         items = self.traffic.episodes(stream, self.batch)
         (avg, per_item), preds = self.program.evaluate(
-            items, batch_size=self.batch)
+            items, batch_size=self.batch, **self.inputs)
         return items, avg, per_item, preds
 
     def warmup(self):
@@ -111,15 +121,10 @@ class EvalCell(Cell):
         window_s = waves[-1] - t0
         self.record.finalize()
         steps = self.record.live_steps()
-        m, lang = self.cfg["model"], self.mix["instr_len"]
-        work = self.batch * (flops.instruction(m, lang)
-                             + self.mix["max_action_len"] * flops.step(
-                                 m, lang, self.mix["max_gmap_len"],
-                                 self.pano_tokens))
         return {"window_s": window_s, "units": len(waves),
                 "unit_wall_s": window_s / len(waves),
                 "eval_steps_per_s": steps / window_s,
-                "flops": work * len(waves),
+                "flops": self.wave_flops * len(waves),
                 "steps": steps}
 
     def profile(self) -> dict:
@@ -141,8 +146,8 @@ class ServeCell(Cell):
     decision lasts from its robot's observation being ready to the
     decision back: the whole round, restarts and tick."""
 
-    def __init__(self, cfg, mix, seed, device):
-        super().__init__(cfg, mix, seed, device)
+    def __init__(self, cfg, mix, seed, device, ref):
+        super().__init__(cfg, mix, seed, device, ref)
         from vln_magic_tpu_torch.agent.serving import (Candidate, NavFleet,
                                                        Observation)
 
@@ -151,7 +156,7 @@ class ServeCell(Cell):
         self.program = NavFleet(
             magic_config(cfg, mix, self.slots), self.host_weights,
             slots=self.slots, max_cands=mix["max_candidates"],
-            device=self.device)
+            device=self.device, **self.inputs)
         # what a robot standing at each node reports, built once
         self.obs = {}
         for s, scan in enumerate(tr.scans):
@@ -241,10 +246,10 @@ class ServeCell(Cell):
             end = time.perf_counter()
         window_s = end - t0
         m, lang = self.cfg["model"], self.mix["instr_len"]
-        work = (ticks * self.slots * flops.step(
+        work = (ticks * self.slots * self.step_flops(
             m, lang, self.mix["max_gmap_len"],
             self.mix["max_candidates"] + 36)
-            + (self.joins - joins0) * flops.instruction(m, lang))
+            + (self.joins - joins0) * self.instruction_flops(m, lang))
         return {"window_s": window_s, "units": ticks,
                 "unit_wall_s": window_s / ticks,
                 "decision_ms_p95": float(np.percentile(self.latency_ms, 95)),

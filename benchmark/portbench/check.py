@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from reference import metrics as ref_metrics
-from reference.model import Navigator
 from reference.replay import (STOP, UNOFFERED, argmax_choices, gaps,
                               replay)
 
@@ -185,19 +184,22 @@ def _close(a, b) -> bool:
     return abs(float(a) - float(b)) <= 1e-4 * max(1.0, abs(float(a)))
 
 
-def reference_gaps(record, cfg: dict, host_weights: dict, mix: dict,
-                   seed: int, device, control: bool = False) -> dict:
-    """Replay the seed's sample of episodes through the f32 reference: the
-    widest and the mean gap, over the decisions replayed, of the program's
-    choices below the reference's best; with ``control``, under
-    ``"control"``, the same numbers of the fp8 reference's own choice at
-    each of those decisions."""
+def reference_gaps(record, cfg: dict, ref, host_weights: dict, inputs: dict,
+                   mix: dict, seed: int, device,
+                   control: bool = False) -> dict:
+    """Replay the seed's sample of episodes through the f32 reference (the
+    configuration's module ``ref``, handed the same weights and fixed
+    ``inputs`` as the program): the widest and the mean gap, over the
+    decisions replayed, of the program's choices below the reference's
+    best; with ``control``, under ``"control"``, the same numbers of the
+    fp8 reference's own choice at each of those decisions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     weights = {k: torch.as_tensor(v, device=device)
                for k, v in host_weights.items()}
-    ref = Navigator(cfg["model"], weights)
-    low = Navigator(cfg["model"], weights, "fp8") if control else None
+    model = ref.Navigator(cfg["model"], weights, inputs=inputs)
+    low = (ref.Navigator(cfg["model"], weights, "fp8", inputs=inputs)
+           if control else None)
     rng = np.random.default_rng([seed, 3])
     graph = "full" if mix["kind"] == "eval" else "observed"
     feats = {}
@@ -213,7 +215,7 @@ def reference_gaps(record, cfg: dict, host_weights: dict, mix: dict,
                     item["instr_encoding"], int(item["path_idx"][0]),
                     item["heading"], dec, graph, mix["max_action_len"],
                     mix["max_gmap_len"])
-            recs = replay(ref, *args)
+            recs = replay(model, *args)
             prog += gaps(recs)
             decisions += len(recs)
             if control:

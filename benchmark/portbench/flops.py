@@ -48,3 +48,11 @@ def step(m: dict, lang: int, gmap: int, pano: int) -> float:
            + (2 * d * d + 2 * d) * (gmap + vp)
            + 2 * (2 * d) ** 2 + 2 * 2 * d + 2 * 2 * d * d)
     return pano_f + nav
+
+
+def counts(ref) -> tuple:
+    """(instruction, step): the FLOP counts of a configuration's reference
+    module (``instruction_flops``, ``step_flops``) where it gives them, else
+    this file's."""
+    return (getattr(ref, "instruction_flops", instruction),
+            getattr(ref, "step_flops", step))

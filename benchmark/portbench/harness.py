@@ -3,7 +3,24 @@ configuration, traffic and metrics; the files under ``benchmark/`` are
 found by those names:
 
 - ``configs/<config>.json`` (the file ``BENCHMARK.json`` gives): the
-  model's widths as the program runs them, and its compute type;
+  model's widths as the program runs them, and its compute type; its
+  optional key ``"reference"`` names the configuration's module,
+  ``reference/<module>.py`` (absent: ``model``, the base navigator);
+- ``reference/<module>.py``: the plain reference of a configuration's
+  model, loaded as ``reference.<module>`` (so it may import the base
+  modules relatively; otherwise only ``numpy``, ``torch`` and ``math``).
+  It gives ``param_shapes(model_cfg)``, the flax names and shapes of every
+  weight (``portbench.weights.draw`` draws these), and
+  ``Navigator(model_cfg, weights, precision="f32", inputs=None)`` with
+  ``language``, ``panorama`` and ``navigation`` as ``reference/replay.py``
+  calls them (a subclass of ``reference.model.Navigator``).  Optionally
+  ``inputs(cfg)``: the configuration's fixed inputs besides its weights,
+  numpy arrays drawn from a seed in the configuration file, as keyword
+  arguments of the program's public API (``Navigator.evaluate`` and
+  ``NavFleet`` both take ``zdicts``), drawn once in set-up and handed to
+  the program and to the reference alike; and ``instruction_flops(m,
+  lang)`` and ``step_flops(m, lang, gmap, pano)``, which replace
+  ``portbench.flops.instruction`` and ``.step`` in the windows' counts;
 - ``traffic/<traffic>.json``: a mix's parameters; its ``kind`` names the
   driver (``portbench.cells.DRIVERS``);
 - ``limits/<workload>.json``: the limit of each number the correctness
@@ -13,7 +30,8 @@ found by those names:
   ``<family>.<kind>`` with no file of its own is read by
   ``metrics/<family>.py``, one reader for every kind of cell.
 
-A new configuration, mix, cell or per-layer metric is new files and new
+A new configuration (with its own reference where its model adds to the
+base navigator), mix, cell or per-layer metric is new files and new
 entries in ``BENCHMARK.json``.
 """
 
@@ -60,6 +78,13 @@ class Spec:
         entry = next(c for c in self.data["configs"] if c["name"] == name)
         return self._json(self.root, entry["file"])
 
+    def reference(self, config: str):
+        """The configuration's reference module (``reference/<module>.py``,
+        the configuration file's ``"reference"``, else ``model``)."""
+        name = self.config(config).get("reference", "model")
+        return _load(f"reference.{name}",
+                     os.path.join(self.dir, "reference", f"{name}.py"))
+
     def traffic(self, name: str) -> dict:
         return self._json(self.dir, "traffic", f"{name}.json")
 
@@ -83,12 +108,16 @@ class Spec:
         if not os.path.exists(path) and "." in metric:
             path = os.path.join(self.dir, "metrics",
                                 f"{metric.rsplit('.', 1)[0]}.py")
-        spec = importlib.util.spec_from_file_location(
-            "portbench_metric_" + metric.replace(".", "_").replace("-", "_"),
-            path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load("portbench_metric_" + metric.replace(".", "_")
+                     .replace("-", "_"), path).read
+
+
+def _load(name: str, path: str):
+    """The module at ``path``, run as ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Run:
@@ -113,8 +142,9 @@ def execute(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
     own runs never run it; ``benchmark/readings.py`` does)."""
     w = spec.workload(name)
     cfg, mix = spec.config(w["config"]), spec.traffic(w["traffic"])
+    ref = spec.reference(w["config"])
     t_build = time.perf_counter()
-    cell = DRIVERS[mix["kind"]](cfg, mix, seed, device)
+    cell = DRIVERS[mix["kind"]](cfg, mix, seed, device, ref)
     t_warm = time.perf_counter()
     cell.warmup()
     # what set-up made lives to the end: keep the collector off it
@@ -141,8 +171,8 @@ def execute(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
     cell.free()
 
     record = cell.record
-    gaps = reference_gaps(record, cfg, cell.host_weights, mix, seed, device,
-                          control)
+    gaps = reference_gaps(record, cfg, ref, cell.host_weights, cell.inputs,
+                          mix, seed, device, control)
     counts = record.counts(np.random.default_rng([seed, 4]))
     limits = spec.limits(name)
     correct, checks = judge({**gaps, **counts}, limits)

@@ -16,15 +16,15 @@ import math
 import numpy as np
 import torch
 
-from reference.model import param_shapes
-
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def draw(cfg: dict, dtype: str, seed: int, device) -> dict[str, torch.Tensor]:
+def draw(shapes: dict[str, tuple], dtype: str, seed: int,
+         device) -> dict[str, torch.Tensor]:
     """flax name -> weight on ``device`` in f32, holding values exact in
-    ``dtype``, drawn from ``seed``."""
-    shapes = param_shapes(cfg["model"])
+    ``dtype``, drawn from ``seed``: the weights ``shapes`` names (the
+    configuration's reference module's ``param_shapes``), in order of
+    name."""
     names = sorted(shapes)
     sizes = [math.prod(shapes[n]) for n in names]
     gen = torch.Generator(device=device).manual_seed(seed % 2 ** 63)

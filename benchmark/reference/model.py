@@ -15,6 +15,13 @@ fused by a learned gate (reference: ``map_nav_src/models/vilmodel.py``,
 of every matrix product (weights, linear layers' inputs, the attention's
 Q, K, V and probabilities) to float8 e4m3 with one scale per tensor, the
 control of the correctness check.  Nothing here imports the program.
+
+This is the base navigator, the module of every configuration that names
+no other (``portbench.harness``).  A configuration whose model adds heads
+brings a module of its own that subclasses ``Navigator`` and overrides
+``language`` or the three points where the tokens enter the layers
+(``pano_input``, ``gmap_input``, ``vp_input``), reading its fixed inputs
+from ``self.inputs``.
 """
 
 from __future__ import annotations
@@ -115,10 +122,15 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
 
 
 class Navigator:
-    """The reference forward.  ``weights``: flax name -> f32 tensor."""
+    """The reference forward.  ``weights``: flax name -> f32 tensor;
+    ``inputs``: the configuration's fixed inputs besides its weights (the
+    module's ``inputs(cfg)``, as handed to the program), which the base
+    navigator has none of."""
 
-    def __init__(self, cfg: dict, weights: dict, precision: str = "f32"):
+    def __init__(self, cfg: dict, weights: dict, precision: str = "f32",
+                 inputs: dict | None = None):
         self.cfg = cfg
+        self.inputs = inputs or {}
         self.h = cfg["num_attention_heads"]
         self.fp8 = precision == "fp8"
         if precision not in ("f32", "fp8"):
@@ -205,16 +217,35 @@ class Navigator:
         occupies): image features [P, D], location features [P, 7] and
         navigation types [P] -> (token embeddings [P, d], pooled [d])."""
         pe = "params.pano_encoder"
-        x = self.norm(f"{pe}.fuse_norm",
-                      self.norm(f"{pe}.img_norm", self.lin(f"{pe}.img_proj",
-                                                           img))
-                      + self.norm(f"{pe}.loc_norm",
-                                  self.lin(f"{pe}.loc_proj", loc))
-                      + self.emb(f"{pe}.nav_type_embedding", nav_type))
+        x = self.pano_input(img, loc, nav_type)
         for i in range(self.cfg["num_pano_layers"]):
             x = self.self_layer(f"{pe}.layer_{i}", x)
         w = torch.softmax(self.lin(f"{pe}.fusion_score", x)[:, 0], dim=0)
         return x, w @ x
+
+    def pano_input(self, img, loc, nav_type):
+        """The panorama's tokens [P, d] as they enter its layers."""
+        pe = "params.pano_encoder"
+        return self.norm(f"{pe}.fuse_norm",
+                         self.norm(f"{pe}.img_norm",
+                                   self.lin(f"{pe}.img_proj", img))
+                         + self.norm(f"{pe}.loc_norm",
+                                     self.lin(f"{pe}.loc_proj", loc))
+                         + self.emb(f"{pe}.nav_type_embedding", nav_type))
+
+    def gmap_input(self, gmap_img, gmap_step, gmap_pos):
+        """The map's tokens [G, d] as they enter the global branch."""
+        p = "params"
+        return self.norm(f"{p}.gmap_input_norm",
+                         gmap_img + self.emb(f"{p}.gmap_step_embedding",
+                                             gmap_step)
+                         + self.lin(f"{p}.gmap_pos_proj", gmap_pos))
+
+    def vp_input(self, vp_img, vp_pos):
+        """The viewpoint's tokens [V, d] as they enter the local branch."""
+        p = "params"
+        return self.norm(f"{p}.vp_input_norm",
+                         vp_img + self.lin(f"{p}.vp_pos_proj", vp_pos))
 
     def navigation(self, txt, gmap_img, gmap_step, gmap_pos, pair_dist,
                    vp_img, vp_pos):
@@ -223,12 +254,8 @@ class Navigator:
         Returns (gmap scores [G], vp scores [V], the fusion gate, [MEM]
         for the next step)."""
         p, c = "params", self.cfg
-        g = self.norm(f"{p}.gmap_input_norm",
-                      gmap_img + self.emb(f"{p}.gmap_step_embedding",
-                                          gmap_step)
-                      + self.lin(f"{p}.gmap_pos_proj", gmap_pos))
-        v = self.norm(f"{p}.vp_input_norm",
-                      vp_img + self.lin(f"{p}.vp_pos_proj", vp_pos))
+        g = self.gmap_input(gmap_img, gmap_step, gmap_pos)
+        v = self.vp_input(vp_img, vp_pos)
         sprel = self.lin(f"{p}.global_encoder.sprel_linear",
                          (1.0 / (1.0 + pair_dist))[..., None])
         sprel = sprel.permute(2, 0, 1)

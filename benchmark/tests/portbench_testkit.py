@@ -1,6 +1,7 @@
 """Shared pieces of the benchmark's own tests: the benchmark's directory on
 ``sys.path`` and a tiny copy of the benchmark (its ``BENCHMARK.json``,
-configurations, traffic and limits) that runs on the CPU in seconds."""
+configurations, references, traffic and limits) that runs on the CPU in
+seconds."""
 
 from __future__ import annotations
 
@@ -47,8 +48,10 @@ def tiny_benchmark(tmp_path, dtype: str = "bfloat16") -> str:
     path of its ``BENCHMARK.json``."""
     root = str(tmp_path)
     bench = os.path.join(root, "benchmark")
-    shutil.copytree(os.path.join(BENCH_DIR, "metrics"),
-                    os.path.join(bench, "metrics"))
+    for sub in ("metrics", "reference"):
+        shutil.copytree(os.path.join(BENCH_DIR, sub),
+                        os.path.join(bench, sub),
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for sub in ("configs", "traffic", "limits"):
         os.makedirs(os.path.join(bench, sub))
     dump = lambda obj, *parts: json.dump(
@@ -80,6 +83,64 @@ def tiny_benchmark(tmp_path, dtype: str = "bfloat16") -> str:
     with open(path, "w") as f:
         json.dump(real, f, indent=1)
     return path
+
+
+# the tiny frontdoor cells' limits, set on the CPU from 12 seeds a cell at
+# 0.5 s, every episode of the window replayed: the program read at most
+# 0.00179 / 1.69e-5 (eval) and 8e-5 / 1.4e-6 (serve), the control and the
+# program handed no dictionary at least 0.0047 / 6.07e-5 (eval) and
+# 0.00092 / 2.08e-5 (serve; the control read 0 on one seed)
+FRONT_LIMITS = {
+    "eval": {"logit_gap": 0.0035, "mean_logit_gap": 3.5e-5,
+             "bad_trajectories": 0, "metric_mismatches": 0},
+    "serve": {"logit_gap": 0.0005, "mean_logit_gap": 6e-6,
+              "bad_decisions": 0},
+}
+
+
+def add_front_his(path: str) -> None:
+    """Add to the tiny copy whose ``BENCHMARK.json`` is ``path``, as new
+    files and new entries only, the configuration ``tiny-front`` (the tiny
+    model with GOAT's map frontdoor, ``do_front_his``), the reference
+    module it names (``reference/front_his.py``, from
+    ``front_his_reference.py`` here) and its cells ``tiny-front.eval`` and
+    ``tiny-front.serve``: the tiny mixes with every episode of the window
+    replayed, the tiny cells' metrics, limits of their own."""
+    bench = os.path.join(os.path.dirname(path), "benchmark")
+    with open(os.path.join(bench, "configs", "tiny.json")) as f:
+        cfg = json.load(f)
+    cfg["model"]["do_front_his"] = True
+    cfg["reference"] = "front_his"
+    # the head's weights shift the draw; this seed's random model walks
+    # until it is stopped, as the tiny cells' own does (seed 2 here stops
+    # most episodes at once, leaving nothing free to compare)
+    cfg["weights_seed"] = 3
+    with open(os.path.join(bench, "configs", "tiny-front.json"), "w") as f:
+        json.dump(cfg, f)
+    shutil.copy(os.path.join(BENCH_DIR, "tests", "front_his_reference.py"),
+                os.path.join(bench, "reference", "front_his.py"))
+    with open(path) as f:
+        spec = json.load(f)
+    spec["configs"].append({"name": "tiny-front", "source": "tiny",
+                            "file": "benchmark/configs/tiny-front.json",
+                            "reduced": [], "why": "a test"})
+    for kind in REAL:
+        name = f"tiny-front.{kind}"
+        with open(os.path.join(bench, "traffic", f"{kind}.json")) as f:
+            mix = dict(json.load(f), check_episodes=64, check_longest=8)
+        with open(os.path.join(bench, "traffic", f"{kind}-all.json"),
+                  "w") as f:
+            json.dump(mix, f)
+        spec["workloads"].append({"name": name, "config": "tiny-front",
+                                  "traffic": f"{kind}-all", "chips": 1,
+                                  "why": "a test"})
+        with open(os.path.join(bench, "limits", f"{name}.json"), "w") as f:
+            json.dump(FRONT_LIMITS[kind], f)
+        for m in spec["end_to_end"] + spec["per_layer"]:
+            if f"tiny.{kind}" in m.get("workloads", []):
+                m["workloads"].append(name)
+    with open(path, "w") as f:
+        json.dump(spec, f, indent=1)
 
 
 def run_tiny(path: str, workload: str, seed: int = 2 ** 31 + 7,

@@ -2,13 +2,15 @@
 run (set-up, warm-up, window, profiled stretch, check), and the check
 seeing ``correct`` come out false when the timed path is broken
 underneath: a decision altered where it is made, a step whose map state is
-left unchanged, half of a wave's episodes left out."""
+left unchanged, half of a wave's episodes left out.  A configuration that
+brings its own reference module and inputs as new files (``tiny-front``,
+GOAT's map frontdoor) runs the head on both kinds and is held to it."""
 
 from __future__ import annotations
 
 import pytest
 import torch
-from portbench_testkit import run_tiny, tiny_benchmark
+from portbench_testkit import add_front_his, run_tiny, tiny_benchmark
 
 KINDS = ("eval", "serve")
 
@@ -24,6 +26,13 @@ def one_thread():
 @pytest.fixture
 def bench(tmp_path):
     return tiny_benchmark(tmp_path)
+
+
+@pytest.fixture
+def front(tmp_path):
+    path = tiny_benchmark(tmp_path)
+    add_front_his(path)
+    return path
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -107,25 +116,60 @@ def test_control_reads_above_the_program(bench, kind):
     card's readings at the cell's own size set the real ones,
     ``benchmark/readings.py``) the program comes out correct and the
     control not, at a size a test run holds."""
+    _control_above(bench, f"tiny.{kind}")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_a_head_the_base_lacks_runs_correct_from_new_files(front, kind):
+    out = run_tiny(front, f"tiny-front.{kind}")
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_inputs_withheld_from_the_program_are_not_correct(front, monkeypatch,
+                                                          kind):
+    """The program handed no dictionary skips the frontdoor; the reference
+    applies it, and the check sees the difference."""
+    from vln_magic_tpu_torch.agent.navigator import Navigator
+    from vln_magic_tpu_torch.agent.serving import NavFleet
+
+    for cls, name in ((Navigator, "evaluate"), (NavFleet, "__init__")):
+        real = getattr(cls, name)
+
+        def without(self, *a, _real=real, **kw):
+            kw.pop("zdicts", None)
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(cls, name, without)
+    out = run_tiny(front, f"tiny-front.{kind}")
+    assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_front_door_control_reads_above_the_program(front, kind):
+    _control_above(front, f"tiny-front.{kind}")
+
+
+def _control_above(bench, workload):
     import json
     import os
 
     gaps = ("logit_gap", "mean_logit_gap")
-    runs = [run_tiny(bench, f"tiny.{kind}", seed=seed, seconds=0.3,
+    runs = [run_tiny(bench, workload, seed=seed, seconds=0.3,
                      control=True) for seed in (11, 12, 13)]
     lower = {k: max(r["checks"][k]["value"] for r in runs) for k in gaps}
     upper = {k: min(r["control"]["checks"][k]["value"] for r in runs)
              for k in gaps}
     assert all(upper[k] > lower[k] for k in gaps), (lower, upper)
     path = os.path.join(os.path.dirname(bench), "benchmark", "limits",
-                        f"tiny.{kind}.json")
+                        f"{workload}.json")
     with open(path) as f:
         limits = json.load(f)
     limits.update({k: (lower[k] * upper[k]) ** 0.5 for k in gaps})
     with open(path, "w") as f:
         json.dump(limits, f)
-    out = run_tiny(bench, f"tiny.{kind}", seed=12, seconds=0.3,
-                   control=True)
+    out = run_tiny(bench, workload, seed=12, seconds=0.3, control=True)
     assert out["correct"], out["checks"]
     ctrl = out["control"]
     assert not ctrl["correct"], ctrl

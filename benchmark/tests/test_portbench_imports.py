@@ -42,15 +42,23 @@ def test_a_run_loads_no_jax(tmp_path):
 
 
 def test_the_reference_loads_nothing_of_the_program(tmp_path):
-    mods = sorted(f[:-3] for f in os.listdir(os.path.join(BENCH_DIR,
-                                                          "reference"))
-                  if f.endswith(".py") and f != "__init__.py")
-    loaded = _loaded_after("".join(f"import reference.{m}\n" for m in mods),
-                           tmp_path)
+    """Every reference module, and the tests' module of a configuration
+    with a head of its own (loaded as the harness loads one, under
+    ``reference.``)."""
+    ref_dir = os.path.join(BENCH_DIR, "reference")
+    files = {f[:-3]: os.path.join(ref_dir, f) for f in os.listdir(ref_dir)
+             if f.endswith(".py") and f != "__init__.py"}
+    files["front_his"] = os.path.join(BENCH_DIR, "tests",
+                                      "front_his_reference.py")
+    loaded = _loaded_after(
+        "import importlib.util\n" + "".join(
+            f"s = importlib.util.spec_from_file_location('reference.{m}', "
+            f"{path!r})\ns.loader.exec_module("
+            "importlib.util.module_from_spec(s))\n"
+            for m, path in sorted(files.items())), tmp_path)
     assert not loaded & (FORBIDDEN | {"vln_magic_tpu_torch", "portbench"})
-    for m in mods:
-        tree = ast.parse(open(os.path.join(BENCH_DIR, "reference",
-                                           f"{m}.py")).read())
+    for m, path in files.items():
+        tree = ast.parse(open(path).read())
         for node in ast.walk(tree):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else

@@ -1,8 +1,10 @@
 """The window's arithmetic: a stall inside the window moves each end-to-end
-metric, and the decision tail is taken over every decision."""
+metric, the decision tail is taken over every decision, and the FLOPs are
+counted by the configuration's module where it gives counts of its own."""
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -20,15 +22,34 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _cell(tmp_path, kind):
+# a configuration's module that gives FLOP counts of its own
+COUNTED = ('"""The base navigator, counted otherwise."""\n\n'
+           'from .model import Navigator, param_shapes  # noqa: F401\n\n\n'
+           'def instruction_flops(m, lang):\n    return 1000 * lang\n\n\n'
+           'def step_flops(m, lang, gmap, pano):\n'
+           '    return 7 * gmap + pano\n')
+
+
+def _cell(tmp_path, kind, reference=None):
+    """A warmed-up tiny cell; ``reference``: the source of a module that the
+    tiny configuration names, written into the tiny copy."""
     from portbench.cells import DRIVERS
     from portbench.harness import Spec
 
     path = tiny_benchmark(tmp_path)
-    spec = Spec(path, os.path.join(os.path.dirname(path), "benchmark"))
+    bench = os.path.join(os.path.dirname(path), "benchmark")
+    if reference is not None:
+        with open(os.path.join(bench, "reference", "counted.py"), "w") as f:
+            f.write(reference)
+        cfg_path = os.path.join(bench, "configs", "tiny.json")
+        with open(cfg_path) as f:
+            cfg = dict(json.load(f), reference="counted")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+    spec = Spec(path, bench)
     w = spec.workload(f"tiny.{kind}")
     cfg, mix = spec.config(w["config"]), spec.traffic(w["traffic"])
-    cell = DRIVERS[kind](cfg, mix, 5, "cpu")
+    cell = DRIVERS[kind](cfg, mix, 5, "cpu", spec.reference(w["config"]))
     cell.warmup()
     return cell
 
@@ -82,3 +103,20 @@ def test_the_tail_is_over_every_decision(tmp_path):
     assert len(cell.latency_ms) == out["decisions"]
     assert out["decision_ms_p95"] == pytest.approx(
         float(np.percentile(cell.latency_ms, 95)))
+
+
+@pytest.mark.parametrize("kind", ("eval", "serve"))
+def test_the_window_counts_flops_by_the_configurations_module(tmp_path,
+                                                             kind):
+    cell = _cell(tmp_path, kind, COUNTED)
+    joins = getattr(cell, "joins", 0)
+    out = cell.window(0.5)
+    mix = cell.mix
+    step = 7 * mix["max_gmap_len"] + mix["max_candidates"] + 36
+    instr = 1000 * mix["instr_len"]
+    if kind == "eval":
+        want = out["units"] * mix["batch"] * (
+            instr + mix["max_action_len"] * step)
+    else:
+        want = out["units"] * cell.slots * step + (cell.joins - joins) * instr
+    assert out["flops"] == want
