@@ -122,11 +122,13 @@ SCRIPTS = {
 @pytest.mark.parametrize("name", sorted(SCRIPTS))
 def test_parse_args_matches_jax(tmp_path, name):
     """Every flag parses to JAX's value, the directories made alike; the
-    port adds ``--device`` (default ``cuda``)."""
+    port adds ``--device`` (default ``cuda``) and
+    ``--img_backdoor_dict_file`` (default None)."""
     argv = SCRIPTS[name] + ["--root_dir", str(tmp_path / "data")] + \
         out_args(tmp_path, name)
     got, want = vars(cli.parse_args(argv)), vars(jax_cli.parse_args(argv))
     assert got.pop("device") == "cuda"
+    assert got.pop("img_backdoor_dict_file") is None
     assert got == want
     assert os.path.isdir(got["ckpt_dir"]) and os.path.isdir(got["pred_dir"])
     for a in (cli, jax_cli):

@@ -201,12 +201,15 @@ def load_backdoor_tsv(path: str, dim: int):
     return out
 
 
-def build_rollout_zdicts(backdoor=None, front=None, pad_entries: int = 0):
+def build_rollout_zdicts(backdoor=None, front=None, pad_entries: int = 0,
+                         img: Zdict | None = None):
     """One role's backdoor Zdicts + frontdoor family features in the
     structure ``Rollout.run(zdicts={role: ...})`` takes (numpy arrays,
-    without the batch axis).  ``pad_entries`` pads the backdoor tables to
-    a fixed row count with p(z) = 0 rows, which the model's log-prior
-    bias suppresses (``models.vlnbert.ZdictAttention``)."""
+    without the batch axis).  ``pad_entries`` pads the instruction's
+    backdoor tables to a fixed row count with p(z) = 0 rows, which the
+    model's log-prior bias suppresses (``models.vlnbert.ZdictAttention``).
+    ``img``: the image backdoor's dictionary at ``image_feat_size``
+    (``z_img_feats``, ``z_img_pzs``), as it is, unpadded."""
     out = {}
     if backdoor:
         def padded(z: Zdict):
@@ -228,6 +231,8 @@ def build_rollout_zdicts(backdoor=None, front=None, pad_entries: int = 0):
         out["front_txt_feats"] = front["txt"]
         out["front_vp_feats"] = front["vp"]
         out["front_gmap_feats"] = front["gmap"]
+    if img is not None:
+        out["z_img_feats"], out["z_img_pzs"] = img.features, img.pzs
     return out
 
 

@@ -30,8 +30,12 @@ take their dictionaries from the ``--*_backdoor_dict_file``/
 model on the train split (``agent/interventions.py``); training refreshes
 them at iteration 0, every ``--update_iter`` and on each new best
 (``--z_instr_update`` for the backdoor), writing
-``ckpts/cfp_features_<role>_<it>.tsv``.  ``--ensemble_n`` > 1 validates with
-MC-dropout ensembles.
+``ckpts/cfp_features_<role>_<it>.tsv``.  The image backdoor
+(``--do_back_img``) reads its dictionary from ``--img_backdoor_dict_file``
+(the reference's ``image_z_dict_clip_50.tsv`` layout: key, p(z), base64
+float32 at ``image_feat_size``), a flag of this package alone, for both
+roles and in every mode, refreshes included; without it the CLI refuses
+to start.  ``--ensemble_n`` > 1 validates with MC-dropout ensembles.
 
 The weights files are the reference ``.pt`` container, which the JAX
 package reads and writes too (``utils.checkpoint``); optimizer sidecars,
@@ -211,6 +215,9 @@ def parse_args(argv=None):
     p.add_argument("--frontdoor_dict_file", default=None)
     p.add_argument("--s_frontdoor_dict_file", default=None)
     p.add_argument("--t_frontdoor_dict_file", default=None)
+    # the image backdoor's dictionary (this package's flag; JAX's CLI has
+    # no source for it): the TSV layout of image_z_dict_clip_50.tsv
+    p.add_argument("--img_backdoor_dict_file", default=None)
     # speaker / back-translation (parser.py:103-126)
     p.add_argument("--speaker", default=None)                 # speaker ckpt
     p.add_argument("--use_transpeaker", action="store_true", default=False)
@@ -486,6 +493,18 @@ def _front_flags(mcfg) -> bool:
     return mcfg.do_front_txt or mcfg.do_front_img or mcfg.do_front_his
 
 
+def img_backdoor_dict(args, cfg):
+    """The image backdoor's dictionary of ``--img_backdoor_dict_file`` (a
+    ``Zdict`` at ``image_feat_size``, the same for both roles), or None
+    without the flag."""
+    from ..agent.interventions import Zdict
+
+    if not args.img_backdoor_dict_file:
+        return None
+    return Zdict.load_tsv(args.img_backdoor_dict_file,
+                          cfg.model.image_feat_size)
+
+
 def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
                                record=None):
     """Backdoor z-dict + frontdoor CFP dictionary refresh of each role
@@ -493,7 +512,8 @@ def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
     new best, main_nav.py:218-222,439-444,488-494): the backdoor under
     ``--z_instr_update``, the frontdoor's CFP features written to
     ``ckpts/cfp_features_<role>_<it>.tsv``, k-means and a pick seeded
-    ``seed + it``.  Sets and returns ``trainer.zdicts``.  Each role's
+    ``seed + it``; the image backdoor's dictionary (``img_backdoor_dict``)
+    kept as it is.  Sets and returns ``trainer.zdicts``.  Each role's
     language forward (under the trainer's autocast) and the CFP batch
     builder are cached on the trainer."""
     import dataclasses
@@ -506,6 +526,7 @@ def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
     from ..utils.logging import write_to_record_file
 
     cache = trainer.__dict__.setdefault("_zrefresh_cache", {})
+    img = img_backdoor_dict(args, cfg)
     roles = [("student", trainer.model, cfg.model)]
     if trainer.kdl and cfg.teacher_model is not None:
         roles.append(("teacher", trainer.teacher_model, cfg.teacher_model))
@@ -536,7 +557,7 @@ def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
                 feats, args.front_n_clusters,
                 seed=cfg.train.seed).random_pick_front_features(
                 np.random.default_rng(cfg.train.seed + it))
-        z = build_rollout_zdicts(back, front, pad_entries=81)
+        z = build_rollout_zdicts(back, front, pad_entries=81, img=img)
         if z:
             zd_all[role] = z
     trainer.zdicts = zd_all
@@ -549,8 +570,9 @@ def refresh_intervention_dicts(args, cfg, trainer, world, items, it,
 
 def load_intervention_dict_files(args, cfg):
     """The dictionaries of the reference's TSV files, for the flags that
-    name existing files (parser.py:236-259; main_nav.py:574-592):
-    ``{role: rollout z-dicts}`` for each role with at least one file."""
+    name existing files (parser.py:236-259; main_nav.py:574-592), and
+    the image backdoor's (``img_backdoor_dict``): ``{role: rollout
+    z-dicts}`` for each role with at least one file."""
     from ..agent.interventions import (KMeansPicker, build_rollout_zdicts,
                                        load_backdoor_tsv, load_cfp_tsv)
 
@@ -564,6 +586,7 @@ def load_intervention_dict_files(args, cfg):
     dims = {"student": cfg.model.hidden_size,
             "teacher": (cfg.teacher_model.hidden_size
                         if cfg.teacher_model else cfg.model.hidden_size)}
+    img = img_backdoor_dict(args, cfg)
     for role, (back_f, front_f) in role_files.items():
         back = front = None
         if back_f and os.path.exists(back_f):
@@ -574,7 +597,7 @@ def load_intervention_dict_files(args, cfg):
                 feats, args.front_n_clusters,
                 seed=cfg.train.seed).random_pick_front_features(
                 np.random.default_rng(cfg.train.seed))
-        z = build_rollout_zdicts(back, front, pad_entries=81)
+        z = build_rollout_zdicts(back, front, pad_entries=81, img=img)
         if z:
             out[role] = z
     return out
@@ -841,12 +864,13 @@ def valid(args, cfg, world, splits, mesh=None):
 
     # intervention dictionaries: the reference's TSV files when their flags
     # name existing paths (main_nav.py:574-592), else rebuilt from the
-    # loaded weights on the train split
-    zdicts = None
+    # loaded weights on the train split; the image backdoor's file either
+    # way
     file_dicts = load_intervention_dict_files(args, cfg)
-    if "student" in file_dicts:
-        zdicts = {"student": file_dicts["student"]}
-    elif (cfg.model.do_back_txt or _front_flags(cfg.model)) \
+    student = file_dicts.get("student", {})
+    zdicts = {"student": student} if student else None
+    if not set(student) - {"z_img_feats", "z_img_pzs"} \
+            and (cfg.model.do_back_txt or _front_flags(cfg.model)) \
             and splits.get("train"):
         from ..agent.interventions import (KMeansPicker, build_rollout_zdicts,
                                            extract_cfp_features,
@@ -862,7 +886,8 @@ def valid(args, cfg, world, splits, mesh=None):
                 feats, args.front_n_clusters,
                 seed=cfg.train.seed).random_pick_front_features(
                 np.random.default_rng(cfg.train.seed))
-        z = build_rollout_zdicts(back, front, pad_entries=81)
+        # the student's files held the image backdoor's entries alone
+        z = {**build_rollout_zdicts(back, front, pad_entries=81), **student}
         zdicts = {"student": z} if z else None
 
     def eval_model(tag, navigator, zd=None):
@@ -964,6 +989,9 @@ def serve(args, cfg):
       <- {"type": "ready", "resumed": true, "steps": N}
       -> {"type": "quit"}
 
+    Without ``--serve_bundle`` the sessions take the student's
+    intervention dictionaries of the flags' files
+    (``load_intervention_dict_files``), which an exported bundle keeps.
     ``warmup()`` runs every per-step path before the first message, so no
     episode pays the first call's setup.  ``save``/``restore`` let a
     restarted server continue an episode with identical decisions
@@ -1006,9 +1034,12 @@ def serve(args, cfg):
             epoch, _, _ = restore_reference_checkpoint(model, args.resume_file)
             print(json.dumps({"type": "loaded", "ckpt": args.resume_file,
                               "epoch": epoch}), flush=True)
+        file_dicts = load_intervention_dict_files(args, cfg)
         server = NavServer(cfg, max_nodes=args.serve_max_nodes,
                            max_cands=args.serve_max_cands, model=model,
-                           device=args.device)
+                           device=args.device,
+                           zdicts={"student": file_dicts["student"]}
+                           if "student" in file_dicts else None)
     if args.export_serve_bundle:
         server.export_bundle(args.export_serve_bundle,
                              quantize=args.serve_bundle_int8)
@@ -1114,6 +1145,12 @@ def main(argv=None):
     from ..utils.device import resolve_device
 
     args = parse_args(argv)
+    img_file = args.img_backdoor_dict_file
+    if args.do_back_img and not (img_file and os.path.exists(img_file)):
+        raise SystemExit(
+            "--do_back_img needs --img_backdoor_dict_file, an existing TSV "
+            "of the image backdoor's dictionary (key, p(z), base64 float32 "
+            "at image_feat_size, as image_z_dict_clip_50.tsv)")
     resolve_device(args.device)     # a missing GPU fails before any work
     cfg = build_config(args)
     if args.mode == "serve":

@@ -77,8 +77,11 @@ class ModelConfig:
     do_front_txt: bool = False
     do_front_img: bool = False
     do_front_his: bool = False
-    do_back_txt_type: str = "type_2"     # type_1: p(z) prior; type_2: attention
-    do_back_img_type: str = "type_1"     # image backdoor variant (parser.py:138)
+    # the reference's backdoor variants (parser.py:128-138), kept for the
+    # flag surface: nothing reads them, in this package or in JAX's; every
+    # backdoor is ZdictAttention with the log-prior bias
+    do_back_txt_type: str = "type_2"
+    do_back_img_type: str = "type_1"
     do_add_method: str = "door"          # door | add
     cfp_temperature: float = 1.0
 

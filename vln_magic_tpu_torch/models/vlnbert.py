@@ -7,7 +7,11 @@ backdoors, the text, viewpoint and map frontdoors), the branch-fused
 cross-modal trunk (``fuse_branches``), the knowledge-distillation
 projection heads and learned ability weights (``kd_project``,
 ``kd_ability_weights``), and the ``Critic`` value head.  The module tree
-dot-joins to the flax param paths.
+dot-joins to the flax param paths.  Each intervention head's call is a
+program span (``utils.profiling.span``): ``intervention.backdoor_txt``
+(both text backdoors), ``intervention.frontdoor_txt``,
+``intervention.backdoor_img``, ``intervention.frontdoor_vp`` and
+``intervention.frontdoor_gmap``.
 
 Parameters live in ``dtype``; every mode casts its float inputs to it, as
 flax's Dense layers do with their inputs.  Evaluation holds them in the
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..parallel.sharding import parallel_linear
 from .layers import (NEG_INF, CrossModalLayer, MultiHeadAttention,
                      TransformerLayer, dropout, mask_to_bias)
@@ -153,8 +158,9 @@ class PanoEncoder(nn.Module):
         x = self.fuse_norm(img + loc + self.nav_type_embedding(nav_types))
         x = dropout(x, self.cfg.hidden_dropout, deterministic, generator)
         if self.cfg.do_back_img and z_img_feats is not None:
-            x = self.img_backdoor(x, z_img_feats, z_img_pzs, deterministic,
-                                  generator)
+            with span("intervention.backdoor_img"):
+                x = self.img_backdoor(x, z_img_feats, z_img_pzs,
+                                      deterministic, generator)
         attns = []
         for layer in self.layers:
             x, probs = layer(x, pano_masks, deterministic=deterministic,
@@ -291,14 +297,16 @@ class DualScaleVLNBert(nn.Module):
                                      generator, need_maps)
         drop = {"deterministic": deterministic, "generator": generator}
         if c.do_back_txt and instr_zdict is not None:
-            x = self.txt_backdoor_direction(
-                x, instr_zdict["direction_features"],
-                instr_zdict.get("direction_pzs"), **drop)
-            x = self.txt_backdoor_landmark(
-                x, instr_zdict["landmark_features"],
-                instr_zdict.get("landmark_pzs"), **drop)
+            with span("intervention.backdoor_txt"):
+                x = self.txt_backdoor_direction(
+                    x, instr_zdict["direction_features"],
+                    instr_zdict.get("direction_pzs"), **drop)
+                x = self.txt_backdoor_landmark(
+                    x, instr_zdict["landmark_features"],
+                    instr_zdict.get("landmark_pzs"), **drop)
         if c.do_front_txt and front_txt_feats is not None:
-            x = self.txt_frontdoor(x, front_txt_feats, None, **drop)
+            with span("intervention.frontdoor_txt"):
+                x = self.txt_frontdoor(x, front_txt_feats, None, **drop)
         return x, attns
 
     def panorama(self, view_img_fts, loc_fts, nav_types, pano_masks,
@@ -368,13 +376,15 @@ class DualScaleVLNBert(nn.Module):
             + self.gmap_pos_proj(self._f(gmap_pos_fts)))
         zdrop = {"deterministic": deterministic, "generator": generator}
         if c.do_front_his and front_gmap_feats is not None:
-            gmap_embeds = self.gmap_frontdoor(gmap_embeds, front_gmap_feats,
-                                              None, **zdrop)
+            with span("intervention.frontdoor_gmap"):
+                gmap_embeds = self.gmap_frontdoor(
+                    gmap_embeds, front_gmap_feats, None, **zdrop)
         vp_embeds = self.vp_input_norm(
             self._f(vp_img_embeds) + self.vp_pos_proj(self._f(vp_pos_fts)))
         if c.do_front_img and front_vp_feats is not None:
-            vp_embeds = self.vp_frontdoor(vp_embeds, front_vp_feats, None,
-                                          **zdrop)
+            with span("intervention.frontdoor_vp"):
+                vp_embeds = self.vp_frontdoor(vp_embeds, front_vp_feats,
+                                              None, **zdrop)
         drop = {"deterministic": deterministic, "generator": generator,
                 "need_maps": need_maps}
         if c.fuse_branches:
