@@ -101,7 +101,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
     decision, all on the tensor-core route, and one walk launch a decision
     and one a finish; fleets of K 8 and 64 (rounds of K episodes until 200
     ticks are measured, round 0 left out), ms per tick and per decision, 14
-    launches a tick, one walk launch a tick and one a finish, a decision's,
+    launches a tick and 6 more in a round's first tick, which encodes the
+    round's K joins in one batch (a join encodes nothing), one walk launch
+    a tick and one a finish, a decision's,
     a tick's and a finish's walks replayed on the torch loop, equal; the
     share of decisions equal to standalone sessions (bf16: reported); every ``packed_attention`` call
     of a session start and two decisions (B 1), and of a fleet's joins and
@@ -2214,7 +2216,9 @@ def phase_serving(card):
     episode left out) and fleets of K 8 and 64 (rounds of K episodes until
     ``FLEET_TICKS`` ticks are measured, round 0 left out), the packed
     kernel's launches counted per session start (6) and per decision or tick
-    (14), all on the tensor-core route; each packed call of a session start,
+    (14), and 6 more in a fleet round's first tick, which encodes the
+    round's joins in one batch: 6 a round, not 6 a join; all on the
+    tensor-core route; each packed call of a session start,
     two decisions, a fleet's joins and two ticks held against the plain
     version; the walk kernel counted, one launch a decision or tick and one
     a finish, and a decision's, a tick's and a finish's walks replayed on
@@ -2334,6 +2338,7 @@ def phase_serving(card):
         fleet = NavFleet(cfg, model=model, slots=k, max_nodes=SERVE_NODES,
                          max_cands=c, device="cuda")
         walls, tick_counts, n_dec, measured, rounds = [], [], 0, None, 0
+        encode_counts = []   # a round's first tick: its joins' encoding
         tick_walks, round_walks = [], []
 
         def on_tick(decs):
@@ -2353,22 +2358,28 @@ def phase_serving(card):
                                              on_tick)
             # one walk a tick and one a finish
             round_walks.append((observed_walk.launches, len(ticks) + k))
-            tick_counts += [x for _, _, x in ticks]
+            encode_counts.append(ticks[0][2])
+            tick_counts += [x for _, _, x in ticks[1:]]
             if rounds > 0:  # round 0 pays the first calls at these shapes
                 walls += [ms for ms, _, _ in ticks]
                 n_dec += sum(d for _, d, _ in ticks)
                 measured = measured or (f_items, actions)
             rounds += 1
-        if any(x != (LAUNCHES_PER_STEP,) * 2 for x in tick_counts):
-            raise AssertionError(f"fleet {k}: (launches, tensor-core) per "
-                                 f"tick {sorted(set(tick_counts))}, want "
-                                 f"{LAUNCHES_PER_STEP} tensor-core")
+        first = per_start + LAUNCHES_PER_STEP
+        if any(x != (LAUNCHES_PER_STEP,) * 2 for x in tick_counts) or \
+                any(x != (first,) * 2 for x in encode_counts):
+            raise AssertionError(
+                f"fleet {k}: (launches, tensor-core) per tick "
+                f"{sorted(set(tick_counts))}, per round's first tick "
+                f"{sorted(set(encode_counts))}; want {LAUNCHES_PER_STEP} "
+                f"and {first} ({per_start} for the round's {k} joins, "
+                f"encoded in one batch), all tensor-core")
         if set(tick_walks) != {1} or any(a != b for a, b in round_walks):
             raise AssertionError(f"fleet {k}: walk launches a tick "
                                  f"{sorted(set(tick_walks))}, (a round, want) "
                                  f"{round_walks[:5]}; want one a tick and "
                                  f"one a finish")
-        fleet_launches += sum(n for n, _ in tick_counts)
+        fleet_launches += sum(n for n, _ in tick_counts + encode_counts)
         # the same items as K standalone sessions (bf16: reported)
         equal = total = 0
         for it, got in zip(*measured):
@@ -2397,6 +2408,7 @@ def phase_serving(card):
                      "decisions": n_dec, "ticks": len(walls),
                      "rounds_measured": rounds - 1,
                      "launches_per_tick": LAUNCHES_PER_STEP,
+                     "launches_per_round_encode": per_start,
                      "walk_launches": sum(a for a, _ in round_walks),
                      "walk_launches_per_tick": 1,
                      "walk_launches_per_finish": 1,

@@ -300,3 +300,92 @@ def test_a_tick_makes_one_upload(setup, monkeypatch):
     f.step({i: obs_at(s, it, int(it["path_idx"][0]))
             for i, it in enumerate(items)})
     assert uploads == [(3, len(serving.CTL) + int(f._off[-1]) + 36 * 24)]
+
+
+def count_language(monkeypatch, f):
+    """Record the batch of every ``model.language`` call the fleet makes."""
+    batches = []
+    real = f.model.language
+    monkeypatch.setattr(f.model, "language",
+                        lambda ids, *a, **k: batches.append(ids.shape[0])
+                        or real(ids, *a, **k))
+    return batches
+
+
+def assert_slot_encodes(f, slot, instr):
+    """The slot's text, mask and hoisted K/V rows equal the batch-1 encode
+    of ``instr`` that a standalone session on the fleet's model makes."""
+    emb, mask, kv = f.new_session(instr)._txt
+    txt_buf, mask_buf, kv_buf = f._txt
+    torch.testing.assert_close(txt_buf[slot], emb[0], rtol=0, atol=0)
+    assert torch.equal(mask_buf[slot], mask[0])
+    rows = []
+    serving._map_kv(kv_buf, lambda buf, x: rows.append((buf[slot], x[0])),
+                    kv)
+    assert rows
+    for got, want in rows:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_joins_are_encoded_once_in_the_next_tick(setup, monkeypatch):
+    """Three joins encode nothing; the tick after them makes one
+    ``language`` call at batch 3, and each slot's text, mask and K/V rows
+    equal a batch-1 encode of its instruction."""
+    s = setup
+    f = fleet(s, 4)
+    batches = count_language(monkeypatch, f)
+    items = s["items"][:3]
+    for it in items:
+        f.join(it["instr_encoding"])
+    assert batches == [] and sorted(f._pending_instr) == [0, 1, 2]
+    f.step({i: obs_at(s, it, int(it["path_idx"][0]))
+            for i, it in enumerate(items)})
+    assert batches == [3] and f._pending_instr == {}
+    f.step({})
+    assert batches == [3]
+    for slot, it in enumerate(items):
+        assert_slot_encodes(f, slot, it["instr_encoding"])
+
+
+def test_a_released_join_is_not_encoded(setup, monkeypatch):
+    """A join, a release and a join of the same slot before a tick encode
+    only the last instruction, which then decides as its standalone
+    session."""
+    s = setup
+    f = fleet(s, 1)
+    batches = count_language(monkeypatch, f)
+    f.join(s["items"][0]["instr_encoding"])
+    f.release(0)
+    assert f._pending_instr == {}
+    it = s["items"][1]
+    sess = f.join(it["instr_encoding"])
+    assert serve(s, sess, it) == s["ref"][1]
+    assert batches == [1]
+    assert_slot_encodes(f, 0, it["instr_encoding"])
+
+
+def test_a_rejected_tick_keeps_the_pending_encodings(setup, monkeypatch):
+    """A tick that rejects a submission encodes nothing and keeps every
+    pending instruction; the next good tick encodes them all in one batch
+    and decides as the standalone sessions."""
+    s = setup
+    f = fleet(s, 2)
+    batches = count_language(monkeypatch, f)
+    items = s["items"][:2]
+    for it in items:
+        f.join(it["instr_encoding"])
+    bad = dataclasses.replace(obs_at(s, items[1],
+                                     int(items[1]["path_idx"][0])),
+                              pano_feats=np.zeros((36, 5), np.float32))
+    with pytest.raises(ValueError, match="pano_feats"):
+        f.step({0: obs_at(s, items[0], int(items[0]["path_idx"][0])),
+                1: bad})
+    assert batches == [] and sorted(f._pending_instr) == [0, 1]
+    decisions = f.step({i: obs_at(s, it, int(it["path_idx"][0]))
+                        for i, it in enumerate(items)})
+    assert batches == [2] and f._pending_instr == {}
+    g = [s["world"].graphs[it["scan_idx"]] for it in items]
+    for i in range(2):
+        target = decisions[i].target
+        assert (-1 if target is None else g[i].index[target]) \
+            == s["ref"][i][0][0]

@@ -26,7 +26,9 @@ host-to-device copy of the serving loop goes through ``NavServer._upload``
 (a restore copies the blob's arrays besides):
 
 - a session start (or a fleet join) makes one host-to-device copy, the
-  instruction's ids and mask as one int64 buffer;
+  instruction's ids and mask as one int64 buffer; a session encodes it
+  at once, a fleet in its next tick, every instruction joined since the
+  last tick in one batched forward;
 - a decision, or a fleet tick for all K lanes, makes one host-to-device
   copy, an f32 buffer [K, 7 + P + 36 D] holding each lane's control values
   (submit, is_first, moved, node, heading, step, feature row index:
@@ -295,11 +297,14 @@ class NavServer:
 
     @torch.no_grad()
     def _lang(self, ids_buf):
-        """The instruction encoding from an uploaded [2, L] int64 buffer
-        (ids, mask): (text embeddings [1, L, H], mask [1, L], the hoisted
-        cross-layer K/V or None)."""
-        ids, mask = ids_buf[0:1], ids_buf[1:2].bool()
-        zd = self._zd_for(1)
+        """The instruction encoding from an uploaded int64 buffer of ids and
+        mask, [2, L] for one instruction or [m, 2, L] for m: (text
+        embeddings [m, L, H], mask [m, L], the hoisted cross-layer K/V or
+        None), m = 1 for [2, L]."""
+        if ids_buf.dim() == 2:
+            ids_buf = ids_buf[None]
+        ids, mask = ids_buf[:, 0], ids_buf[:, 1].bool()
+        zd = self._zd_for(ids.shape[0])
         emb, _ = self.model.language(ids, mask,
                                      instr_zdict=zd.get("instr_zdict"),
                                      front_txt_feats=zd.get("front_txt_feats"))
@@ -749,7 +754,9 @@ def _with_pending(bank, n: int, pending) -> np.ndarray:
 class FleetSession(NavSession):
     """One slot of a :class:`NavFleet`: host mirrors as a standalone
     session's, device state, features and instruction in the fleet's
-    batched buffers.  Obtain with :meth:`NavFleet.join`; drive with
+    batched buffers.  Obtain with :meth:`NavFleet.join`, which uploads the
+    instruction and leaves it pending: the fleet's next tick encodes it,
+    and a tick that fails keeps it pending.  Drive with
     :meth:`NavFleet.step` (batched) or this object's ``step`` (a one-slot
     tick)."""
 
@@ -758,7 +765,7 @@ class FleetSession(NavSession):
         self.slot = slot
         self.server = fleet
         self._init_host(fleet, instr_encoding)
-        fleet._join_slot(slot, fleet._upload(self._instr_buf()))
+        fleet._pending_instr[slot] = fleet._upload(self._instr_buf())
         self.state = None              # the device state lives on the fleet
 
     def _put_feature_row(self, v: int, row: np.ndarray):
@@ -802,6 +809,13 @@ class NavFleet(NavServer):
     standalone sessions' (tests/test_torch_fleet.py).  A tick makes one
     host-to-device copy and one device-to-host copy (module docstring).
 
+    A join uploads its instruction and encodes nothing: the next tick
+    encodes every instruction joined since the last one in one
+    ``language`` forward at their number, before it decides.  An
+    instruction stays pending until that encoding is written into the
+    slot's text buffers, so a tick that is rejected or fails before keeps
+    it; ``release`` drops it.
+
     ``max_feature_gb`` bounds the feature bank, slots x (max_nodes + 1) x
     36 x D f32, the fleet's largest buffer: the node budget defaults from
     the config, so a large ``max_gmap_len`` cannot allocate gigabytes by
@@ -832,18 +846,27 @@ class NavFleet(NavServer):
         # feature rows observed since the last tick, by slot; cleared once
         # a tick has returned, so a failed tick keeps them for a save
         self._pending_rows: dict[int, tuple[int, np.ndarray]] = {}
+        # uploaded [2, L] instructions joined since the last encoding, by
+        # slot; cleared once the next tick has written them
+        self._pending_instr: dict[int, torch.Tensor] = {}
+        self._slot_ids = torch.arange(slots, device=self.device)
 
-    def _join_slot(self, slot: int, ids_buf):
-        """Encode the instruction into the slot's text buffers, in place."""
-        with span("fleet.language"):
-            emb, mask, kv = self._lang(ids_buf)
-            if self._txt is None:
-                grow = lambda x: x.new_zeros((self.k,) + x.shape[1:])
-                self._txt = (grow(emb), grow(mask), _map_kv(kv, grow))
-            txt_buf, mask_buf, kv_buf = self._txt
-            txt_buf[slot] = emb[0]
-            mask_buf[slot] = mask[0]
-            _map_kv(kv_buf, lambda buf, x: buf[slot].copy_(x[0]), kv)
+    def _encode_pending(self):
+        """Encode every pending instruction in one batch and write each into
+        its slot's text buffers, one indexed copy a buffer."""
+        slots = list(self._pending_instr)
+        emb, mask, kv = self._lang(
+            torch.stack([self._pending_instr[s] for s in slots]))
+        if self._txt is None:
+            grow = lambda x: x.new_zeros((self.k,) + x.shape[1:])
+            self._txt = (grow(emb), grow(mask), _map_kv(kv, grow))
+        # the slots' index from views of a device arange: no host copy
+        at = torch.cat([self._slot_ids[s:s + 1] for s in slots])
+        txt_buf, mask_buf, kv_buf = self._txt
+        txt_buf.index_copy_(0, at, emb)
+        mask_buf.index_copy_(0, at, mask)
+        _map_kv(kv_buf, lambda buf, x: buf.index_copy_(0, at, x), kv)
+        self._pending_instr.clear()
 
     def _empty_state(self) -> EpisodeBatch:
         """The all-lanes holder before any lane has started: every lane
@@ -900,8 +923,8 @@ class NavFleet(NavServer):
     # ---- control-loop API -----------------------------------------------
 
     def join(self, instr_encoding) -> FleetSession:
-        """Claim a free slot for a new episode (its instruction encoded
-        into the fleet's buffers)."""
+        """Claim a free slot for a new episode.  Its instruction is
+        uploaded now and encoded by the next tick (class docstring)."""
         with span("fleet.join"):
             for slot in range(self.k):
                 if slot not in self._sessions:
@@ -912,7 +935,9 @@ class NavFleet(NavServer):
 
     def release(self, slot: int):
         self._sessions.pop(slot, None)
-        self._pending_rows.pop(slot, None)   # never into a re-claimed slot
+        # never into a re-claimed slot
+        self._pending_rows.pop(slot, None)
+        self._pending_instr.pop(slot, None)
 
     def restore_session(self, path: str) -> FleetSession:
         """Resume a saved session (from :meth:`FleetSession.save` or
@@ -937,8 +962,9 @@ class NavFleet(NavServer):
 
     def step(self, obs_by_slot: dict[int, Observation]) \
             -> dict[int, NavDecision]:
-        """One control tick: check every submission, ingest them, advance
-        all of them in one batched step, return their decisions.  A
+        """One control tick: check every submission, ingest them, encode
+        the instructions joined since the last tick, advance every
+        submission in one batched step, return their decisions.  A
         rejected submission raises before any session changes."""
         with span("fleet.step"):
             t0 = time.perf_counter()
@@ -946,6 +972,9 @@ class NavFleet(NavServer):
                 host, ctl, pre_lens = self._submissions(obs_by_slot)
             with span("fleet.upload"):
                 buf = self._upload(host)
+            if self._pending_instr:
+                with span("fleet.language"):
+                    self._encode_pending()
             with span("fleet.decide"):
                 if self._state is None:
                     self._state = self._empty_state()
