@@ -401,20 +401,20 @@ def ptxas_entries(report):
 
 
 def phase_card_and_build(card):
-    from vln_magic_tpu_torch.ops import attention
+    from vln_magic_tpu_torch.ops import attention, build
 
     reports = {}
 
     def build_one(name):
         t0 = time.perf_counter()
-        attention.build((name,), reports=reports)
+        build.build((name,), reports=reports)
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(attention.KERNELS)) as pool:
-        each = dict(pool.map(build_one, attention.KERNELS))
+    with ThreadPoolExecutor(len(build.KERNELS)) as pool:
+        each = dict(pool.map(build_one, build.KERNELS))
     build_s = time.perf_counter() - t0
-    for name in attention.KERNELS:
+    for name in build.KERNELS:
         print(reports.get(name, ""), flush=True)
     print(card, flush=True)
     emit({"phase": "card_and_build", "card": card,
@@ -2012,7 +2012,7 @@ def phase_serving_golden(card):
              and a[0] >= 0)
     it, (want, want_final) = items[b], sessions[b]
     g = world.graphs[it["scan_idx"]]
-    blob = os.path.join(attention_build_dir(), "serving_session.npz")
+    blob = os.path.join(kernel_build_dir(), "serving_session.npz")
     sess = server.new_session(it["instr_encoding"])
     first = g.index[sess.step(observation_from_world(
         world, it["scan_idx"], int(it["path_idx"][0]),
@@ -2041,11 +2041,11 @@ def phase_serving_golden(card):
     return launches + f_launches
 
 
-def attention_build_dir():
-    from vln_magic_tpu_torch.ops import attention
+def kernel_build_dir():
+    from vln_magic_tpu_torch.ops import build
 
-    os.makedirs(attention.BUILD_DIR, exist_ok=True)
-    return attention.BUILD_DIR
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    return build.BUILD_DIR
 
 
 class _DeviceCopies:
@@ -2422,7 +2422,7 @@ def phase_serving(card):
           "paths": kernel_check, "walks": walk_check, "card": card})
 
     # deployment bundles: f32 and int8, the int8 one served to finish()
-    tmp = tempfile.mkdtemp(dir=attention_build_dir())
+    tmp = tempfile.mkdtemp(dir=kernel_build_dir())
     try:
         sizes = {}
         for name, q in (("f32", False), ("int8", True)):

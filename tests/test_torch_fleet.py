@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vln_magic_tpu_torch.agent import serving
+from vln_magic_tpu_torch.agent.rollout import Rollout
 from vln_magic_tpu_torch.agent.serving import (NavFleet, NavServer,
                                                NavSession,
                                                observation_from_world)
@@ -110,8 +111,8 @@ def multi_step(s):
 
 
 def test_fleet_equals_standalone_sessions(setup):
-    """Six episodes over a warmed-up fleet of 4 (``NavServer.warmup`` on
-    the fleet's model), joining at different ticks
+    """Six episodes over a fleet of 4 warmed up at its 4 lanes, joining at
+    different ticks
     (per-lane episode start and step clocks), each slot released and
     claimed again when its episode ends: decisions, stops and final
     trajectories equal the standalone sessions'."""
@@ -315,7 +316,7 @@ def count_language(monkeypatch, f):
 def assert_slot_encodes(f, slot, instr):
     """The slot's text, mask and hoisted K/V rows equal the batch-1 encode
     of ``instr`` that a standalone session on the fleet's model makes."""
-    emb, mask, kv = f.new_session(instr)._txt
+    emb, mask, kv = f.new_session(instr).fleet._txt
     txt_buf, mask_buf, kv_buf = f._txt
     torch.testing.assert_close(txt_buf[slot], emb[0], rtol=0, atol=0)
     assert torch.equal(mask_buf[slot], mask[0])
@@ -389,3 +390,42 @@ def test_a_rejected_tick_keeps_the_pending_encodings(setup, monkeypatch):
         target = decisions[i].target
         assert (-1 if target is None else g[i].index[target]) \
             == s["ref"][i][0][0]
+
+
+def count_step_batches(monkeypatch):
+    """Record the batch of every ``Rollout.step`` call."""
+    batches = []
+    real = Rollout.step
+    monkeypatch.setattr(Rollout, "step",
+                        lambda self, state, *a, **k:
+                        batches.append(state.batch_size)
+                        or real(self, state, *a, **k))
+    return batches
+
+
+def test_warmup_ticks_at_the_fleet_batch_and_frees_its_slot(setup,
+                                                           monkeypatch):
+    """``NavFleet.warmup`` makes its two decisions through the fleet's own
+    tick at its K lanes and leaves every slot free, with nothing queued."""
+    f = fleet(setup, 3)
+    batches = count_step_batches(monkeypatch)
+    f.warmup()
+    assert batches == [3, 3]
+    assert f._sessions == {} and f._pending_rows == {}
+    assert f._pending_instr == {}
+
+
+def test_a_server_session_decides_through_the_fleet_tick(setup, monkeypatch):
+    """A ``NavServer`` session's decisions go through ``NavFleet._tick``,
+    the one decision path, at batch 1, and equal its unwrapped run."""
+    s = setup
+    ticks, batches = [], count_step_batches(monkeypatch)
+    real = NavFleet._tick
+    monkeypatch.setattr(NavFleet, "_tick",
+                        lambda self, buf, *a: ticks.append(buf.shape[0])
+                        or real(self, buf, *a))
+    it = s["items"][0]
+    assert serve(s, s["server"].new_session(it["instr_encoding"]), it) \
+        == s["ref"][0]
+    n = len(s["ref"][0][0])
+    assert ticks == [1] * n and batches == [1] * n

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from vln_magic_tpu_torch.ops import attention
+from vln_magic_tpu_torch.ops import attention, build
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(__file__)
@@ -281,7 +281,7 @@ def test_fused_kernel_is_deterministic(cuda, dtype):
 def test_fused_tc_smem_mirror_matches_the_kernel(cuda):
     """``fused_tc_chunks`` and ``fused_tc_smem_bytes`` give what a launch
     of the tensor-core route asks for."""
-    lib = attention._load("fused_attention")
+    lib = build.load("fused_attention")
     for hd in attention.HEAD_DIMS:
         for lk in (1, 17, 32, 33, 64, 65, 128, 129, 200, 208, 209, 256):
             for b, lq in ((16, 200), (256, 200), (132, 33), (264, 32)):

@@ -183,7 +183,7 @@ def test_a_rejected_observation_leaves_the_session_as_it_was(setup, server):
             sess.step(bad)
         for k, v in sess._mirrors().items():
             np.testing.assert_array_equal(v, before[k], err_msg=k)
-        assert sess._names == names and sess._pending_row is None
+        assert sess._names == names and sess.fleet._pending_rows == {}
     rest, sess = serve_episode(world, sess, dict(it, path_idx=[target]), 7)
     assert [target] + rest == want
 
@@ -198,7 +198,7 @@ def test_a_rejected_observation_leaves_the_session_as_it_was(setup, server):
         tight.step(unseen)
     for k, v in tight._mirrors().items():
         np.testing.assert_array_equal(v, before[k], err_msg=k)
-    assert tight._names == names and tight._pending_row is None
+    assert tight._names == names and tight.fleet._pending_rows == {}
 
 
 def test_a_decision_writes_its_row_in_place_with_one_upload(setup, server,
@@ -215,13 +215,13 @@ def test_a_decision_writes_its_row_in_place_with_one_upload(setup, server,
                         or real(self, host))
     sess = server.new_session(it["instr_encoding"])
     assert len(uploads) == 1                # the instruction
-    bank = sess._features
+    bank = sess.fleet._features
     ptr = bank.data_ptr()
     start = int(it["path_idx"][0])
     obs = observation_from_world(s["world"], 0, start, float(it["heading"]))
     dec = sess.step(obs)
     assert len(uploads) == 2
-    assert sess._features is bank and bank.data_ptr() == ptr
+    assert sess.fleet._features is bank and bank.data_ptr() == ptr
     np.testing.assert_array_equal(bank[0, sess._ids[obs.node]].numpy(),
                                   obs.pano_feats)
     if not dec.stop:

@@ -1,3 +1,2 @@
-from .serving import (Candidate, FleetSession, NavDecision, NavFleet,
-                      NavServer, NavSession, Observation,
-                      observation_from_world)
+from .serving import (Candidate, NavDecision, NavFleet, NavServer,
+                      NavSession, Observation, observation_from_world)

@@ -17,7 +17,9 @@ A session builds its topological map from the robot's own observations:
 the information state of the reference's GraphMap (observed-graph parity,
 ``agent/rollout.py`` ``relax_observed``), so observations replayed from a
 world give the decisions of the offline parity rollout.  ``NavFleet``
-advances K sessions in one batched step per control tick.
+advances K sessions in one batched step per control tick; a session of
+``NavServer.new_session`` lives in a one-slot fleet of its own, so every
+decision is a fleet tick.
 
 What crosses between host and device.  The host keeps each session's map
 as small numpy mirrors; the device keeps the episode state, the language
@@ -26,8 +28,8 @@ host-to-device copy of the serving loop goes through ``NavServer._upload``
 (a restore copies the blob's arrays besides):
 
 - a session start (or a fleet join) makes one host-to-device copy, the
-  instruction's ids and mask as one int64 buffer; a session encodes it
-  at once, a fleet in its next tick, every instruction joined since the
+  instruction's ids and mask as one int64 buffer; ``new_session`` encodes
+  it at once, a fleet in its next tick, every instruction joined since the
   last tick in one batched forward;
 - a decision, or a fleet tick for all K lanes, makes one host-to-device
   copy, an f32 buffer [K, 7 + P + 36 D] holding each lane's control values
@@ -37,9 +39,8 @@ host-to-device copy of the serving loop goes through ``NavServer._upload``
   copy, the packed int64 result;
 - ``finish`` makes one copy each way.
 
-Episode state is updated in place, as the evaluation step does; a fleet
-tick runs on ``EpisodeBatch.copy_for_step`` and merges lane by lane, so a
-lane that does not submit comes back bit for bit.
+A tick runs the step on ``EpisodeBatch.copy_for_step`` and merges lane by
+lane, so a lane that does not submit comes back bit for bit.
 
 Formats (torch counterparts of JAX's, which this package cannot read):
 
@@ -59,8 +60,8 @@ Formats (torch counterparts of JAX's, which this package cannot read):
   no compiled program: the kernels build from the package's sources at
   first use, which ``warmup`` pays.
 
-One thread drives a server: a decision points the shared rollout at the
-session's tables.
+One thread drives a fleet: a tick points the fleet's rollout at its lanes'
+tables.
 """
 
 from __future__ import annotations
@@ -86,8 +87,7 @@ from .rollout import (EpisodeBatch, Rollout, Tables, _observe, init_episodes,
 from .streaming import _map_kv
 
 __all__ = ["Candidate", "Observation", "NavDecision", "observation_from_world",
-           "NavServer", "NavSession", "FleetSession", "NavFleet",
-           "BUNDLE_FORMAT"]
+           "NavServer", "NavSession", "NavFleet", "BUNDLE_FORMAT"]
 
 BUNDLE_FORMAT = "vln_magic_tpu_torch.serving_bundle.v1"
 # columns of the control block at the head of each lane's upload row
@@ -163,8 +163,10 @@ def observation_from_world(world, scan_idx: int, v: int,
 
 
 class NavServer:
-    """Serving endpoint: owns the model and the step's parts, shared by
-    every session.
+    """Serving endpoint: owns the model, its intervention dictionaries on
+    the device and the upload layout, shared by every session.  Each
+    session lives in a one-slot :class:`NavFleet` of its own on this model,
+    so a decision is a fleet tick at one lane.
 
     ``params``: flat flax names (``utils.weights.load_flax_params``), or
     ``model``: an existing ``DualScaleVLNBert`` on ``device``, used as it
@@ -196,8 +198,7 @@ class NavServer:
                              f"server on {self.device}")
         self.model = model.eval()
         self.device = next(model.parameters()).device
-        self._zdicts = zdicts or {}
-        self._zd = zdicts_on(self._zdicts.get("student"), None, self.device)
+        self._zd = zdicts_on((zdicts or {}).get("student"), None, self.device)
         if max_nodes is None:
             max_nodes = max(cfg.env.max_gmap_len - 2, 2)
         n = self.n = max_nodes
@@ -208,8 +209,6 @@ class NavServer:
         sizes = [n * 3, n * n] + [n * c] * 5
         self._off = np.cumsum([0] + sizes)
         self._width = len(CTL) + int(self._off[-1]) + 36 * self.d
-        self.rollout = Rollout(
-            self._blank_tables(self._new_bank(1)), cfg.env, model)
 
     # ---- host <-> device ------------------------------------------------
 
@@ -287,7 +286,7 @@ class NavServer:
         """Tables of k empty maps, made on the device."""
         k = bank.shape[0]
         packed = torch.zeros((k, int(self._off[-1])), device=self.device)
-        packed[:, self._off[2]:self._off[3]] = -1
+        packed[:, self._off[2]:self._off[3]].fill_(-1)
         return self._unpack_tables(packed, bank)
 
     def _zd_for(self, b: int) -> dict:
@@ -310,77 +309,46 @@ class NavServer:
                                      front_txt_feats=zd.get("front_txt_feats"))
         return emb, mask, Rollout.hoisted_kv(self.model, emb)
 
-    def _decide_core(self, tables, state, t_step, txt):
-        """The step: step-id stamp -> assembly -> model -> argmax ->
-        transition, with the arrival registration deferred to the next
-        decision (``Rollout.transition(defer_observe=True)``).  Returns one
-        packed int64 row per lane: [chosen, ended, action, traj_len,
-        traj_nodes...]."""
-        r = self.rollout
-        r.t = tables
-        chosen, _, just_ended, action = r.step(
-            state, r.episode_tables(state), *txt, t_step,
-            defer_observe=True, zd=self._zd_for(state.batch_size))
-        return torch.cat([torch.stack([chosen, just_ended.long(), action,
-                                       state.traj_len], dim=1),
-                          state.traj_nodes], dim=1)
-
-    @torch.no_grad()
-    def _first(self, buf, bank, txt):
-        """Episode start and the first decision (the offline rollout's
-        ``init_episodes`` and step 0).  The goal is unknown when serving
-        and never read under argmax."""
-        ctl, packed, rows = self._split(buf)
-        self._write_rows(bank, ctl, rows)
-        tables = self._unpack_tables(packed, bank)
-        v = ctl[:, NODE].long()
-        state = init_episodes(tables, torch.zeros_like(v), v, ctl[:, HEADING],
-                              v[:, None], torch.ones_like(v),
-                              self.cfg.model.hidden_size,
-                              observed_parity=True)
-        return state, self._decide_core(tables, state, 0, txt)
-
-    @torch.no_grad()
-    def _next(self, buf, bank, state, t_step, txt):
-        """The arrival registration the previous decision deferred, then a
-        decision, on ``state`` in place."""
-        ctl, packed, rows = self._split(buf)
-        self._write_rows(bank, ctl, rows)
-        tables = self._unpack_tables(packed, bank)
-        relax_observed(state, tables, state.cur, ctl[:, MOVED] > 0)
-        _observe(state, tables)
-        return self._decide_core(tables, state, t_step, txt)
-
-    @torch.no_grad()
-    def _finish_traj(self, packed, bank, state):
-        """Backtrack to the best stop-score node: [stop node, traj_len,
-        traj_nodes...] per lane."""
-        r = self.rollout
-        r.t = self._unpack_tables(packed, bank)
-        stop = r.final_stop_node(state)
-        nodes, ln = r.record_backtrack(state, stop)
-        return torch.cat([stop[:, None], ln[:, None], nodes], dim=1)
-
     # ---- sessions -------------------------------------------------------
 
     def new_session(self, instr_encoding) -> "NavSession":
-        return NavSession(self, np.asarray(instr_encoding))
+        """A session in a one-slot fleet of its own, its instruction
+        encoded now, so that no decision's ``latency_ms`` holds it."""
+        return self._alone(lambda group: group.join(instr_encoding))
+
+    def _alone(self, start) -> "NavSession":
+        """``start(group)``'s session in a new one-slot :class:`NavFleet` on
+        this server's model and device dictionaries (``zdicts_on`` copies
+        nothing already on the device), its instruction encoded at once."""
+        group = NavFleet(self.cfg, model=self.model, slots=1,
+                         max_nodes=self.n, max_cands=self.c,
+                         device=self.device, zdicts={"student": self._zd})
+        sess = start(group)
+        with span("fleet.language"):
+            group._encode_pending()
+        return sess
 
     def warmup(self):
         """Run every per-step path once before the first real episode:
         the first call builds the CUDA kernels (nvcc) and sets up cuBLAS,
-        which a robot must not pay mid-episode.  Without the second call an
-        episode that stops at step 0 would leave the next-step path cold."""
-        sess = self.new_session(np.zeros((4,), np.int64))
-        sess.step(Observation("__warm0", (0.0, 0.0, 0.0), 0.0,
-                              np.zeros((36, self.d), np.float32),
-                              [Candidate("__warm1", (1.0, 0.0, 0.0), 1.0)]))
-        host = self._host(1)
-        self._fill(host[0], {"submit": 1, "moved": 1, "node": sess._cur},
-                   sess._pack_mirrors(), None)
-        self._next(self._upload(host), sess._features, sess.state, 1,
-                   sess._txt)
+        which a robot must not pay mid-episode.  A first and a second
+        decision and a finish go through a session's own ``step`` and
+        ``finish``; on a :class:`NavFleet` the session takes a slot, so the
+        tick runs at the fleet's K lanes, and the slot is released after."""
+        start = self.join if isinstance(self, NavFleet) else self.new_session
+        sess = start(np.zeros((4,), np.int64))
+        for _ in range(2):
+            # a first decision that stops must not leave the next-step tick
+            # cold: the second runs all the same (nodes 0 and 1 below)
+            sess._ended = False
+            here = max(sess._cur, 0)
+            sess.step(Observation(
+                f"__warm{here}", (float(here), 0.0, 0.0), 0.0,
+                np.zeros((36, self.d), np.float32),
+                [Candidate(f"__warm{1 - here}", (float(1 - here), 0.0, 0.0),
+                           1.0)]))
         sess.finish()
+        sess.fleet.release(sess.slot)
 
     # ---- deployment bundles ---------------------------------------------
 
@@ -453,22 +421,19 @@ class NavServer:
 
 
 class NavSession:
-    """One episode's online state: host mirrors of the map, the device
-    episode state and feature bank, and the trajectory record.  Create with
-    :meth:`NavServer.new_session`."""
+    """One episode: host mirrors of its map and its trajectory record, in
+    slot ``slot`` of a :class:`NavFleet`, whose batched buffers hold its
+    device state, feature rows and instruction encoding.  Obtain with
+    :meth:`NavServer.new_session` (a one-slot fleet of its own) or
+    :meth:`NavFleet.join`, which uploads the instruction and leaves it
+    pending: the fleet's next tick encodes it, and a tick that fails keeps
+    it pending."""
 
-    def __init__(self, server: NavServer, instr_encoding):
-        self.server = server
-        self._init_host(server, instr_encoding)
-        self._features = server._new_bank(1)
-        self._pending_row: tuple[int, np.ndarray] | None = None
-        self._txt = server._lang(server._upload(self._instr_buf()))
-        self.state: EpisodeBatch | None = None
-
-    def _init_host(self, server: NavServer, instr_encoding):
-        self.cfg = server.cfg
+    def __init__(self, fleet: "NavFleet", slot: int, instr_encoding):
+        self.fleet, self.slot = fleet, slot
+        self.cfg = fleet.cfg
         self._instr = np.asarray(instr_encoding)
-        n, c = self.n, self.c = server.n, server.c
+        n, c = self.n, self.c = fleet.n, fleet.c
         self.h_pos = np.zeros((n, 3), np.float32)
         self.h_cand_ids = np.full((n, c), -1, np.int32)
         self.h_cand_dist = np.zeros((n, c), np.float32)
@@ -484,6 +449,7 @@ class NavSession:
         self._started = False
         self._ended = False
         self._traj: list[str] = []
+        fleet._pending_instr[slot] = fleet._upload(self._instr_buf())
 
     def _instr_buf(self) -> np.ndarray:
         """[2, L] int64: the ids padded to ``max_instr_len`` with 1, and
@@ -569,9 +535,9 @@ class NavSession:
         return v
 
     def _put_feature_row(self, v: int, row: np.ndarray):
-        # queued for the next decision's upload; each decision ingests one
-        # observation, so one slot is exact
-        self._pending_row = (v, row)
+        # queued for the next tick's upload, keyed by slot: a session
+        # observes one node per tick
+        self.fleet._pending_rows[self.slot] = (v, row)
 
     def _reverse_fill(self, frm: int, to: int, dist: float):
         """Record the reverse edge ``frm -> to`` so the observed-graph walk
@@ -617,43 +583,14 @@ class NavSession:
     # ---- control-loop API -----------------------------------------------
 
     def step(self, obs: Observation) -> NavDecision:
-        """One decision: ingest the robot's observation at its current node,
-        run the step, return the plan."""
-        t0 = time.perf_counter()
-        if self._ended:
-            raise RuntimeError("episode already ended; call finish()")
-        self._check(obs)
-        v = self._ingest(obs)
-        server = self.server
-        host = server._host(1)
-        first = not self._started
-        server._fill(host[0], {"submit": 1, "is_first": first,
-                               "moved": self._last_moved, "node": v,
-                               "heading": obs.heading,
-                               "t_step": self.t_step},
-                     self._pack_mirrors(), self._pending_row)
-        buf = server._upload(host)
-        pre_len = max(len(self._traj), 1)
-        if first:
-            state, out = server._first(buf, self._features, self._txt)
-        else:
-            state = self.state
-            out = server._next(buf, self._features, state, self.t_step,
-                               self._txt)
-        out = out[0].cpu().numpy()       # the one device-to-host copy
-        self.state, self._started = state, True
-        self._pending_row = None
-        return self._record(out, obs, pre_len,
-                            (time.perf_counter() - t0) * 1000.0)
+        """One decision: a tick of the session's fleet in which this slot
+        submits the robot's observation at its current node."""
+        return self.fleet.step({self.slot: obs})[self.slot]
 
     def finish(self) -> dict:
         """Backtrack to the best stop-score node (agent.py:1080-1095) and
         return the final trajectory record."""
-        if not self._started:
-            raise RuntimeError("no steps taken")
-        return self._final(self.server._finish_traj(
-            self.server._upload(self._pack_mirrors()[None]), self._features,
-            self.state)[0].cpu().numpy())
+        return self.fleet.finish(self.slot)
 
     def _final(self, out: np.ndarray) -> dict:
         stop_node, tl = int(out[0]), int(out[1])
@@ -665,12 +602,16 @@ class NavSession:
 
     def save(self, path: str):
         """Write the session blob (module docstring) so that a crashed
-        control process resumes the episode where it stopped."""
-        self._write_blob(path, _with_pending(self._features, self.n,
-                                             self._pending_row),
-                         self.state)
-
-    def _write_blob(self, path: str, features: np.ndarray, state):
+        control process resumes the episode where it stopped: the slot's
+        state and feature rows out of the fleet's buffers, ``state.scan``
+        0, any row still queued folded in.  It restores on a
+        :class:`NavServer` (:meth:`restore`) or in a fleet slot
+        (:meth:`NavFleet.restore_session`)."""
+        f, slot = self.fleet, self.slot
+        features = f._features[slot:slot + 1, :f.n].cpu().numpy().copy()
+        pending = f._pending_rows.get(slot)
+        if pending is not None:
+            features[0, pending[0]] = pending[1]
         blob = {"instr": self._instr, "features": features,
                 "names": np.asarray(self._names, dtype=str),
                 "traj": np.asarray(self._traj, dtype=str),
@@ -679,13 +620,14 @@ class NavSession:
                 "cur": np.int64(self._cur), "ended": np.bool_(self._ended)}
         for name, arr in self._mirrors().items():
             blob[f"mirrors.{name}"] = arr
-        if state is not None:
-            for f in dataclasses.fields(EpisodeBatch):
-                x = getattr(state, f.name)
+        if self._started:
+            state = f._lane_state(slot)
+            for fl in dataclasses.fields(EpisodeBatch):
+                x = getattr(state, fl.name)
                 if x is not None:
-                    blob[f"state.{f.name}"] = x.cpu().numpy()
-        with open(path, "wb") as f:
-            np.savez(f, **blob)
+                    blob[f"state.{fl.name}"] = x.cpu().numpy()
+        with open(path, "wb") as out:
+            np.savez(out, **blob)
 
     def _mirrors(self) -> dict:
         return {"pos": self.h_pos, "dist": self.h_dist,
@@ -712,89 +654,10 @@ class NavSession:
 
     @classmethod
     def restore(cls, server: NavServer, path: str) -> "NavSession":
-        """A session from a blob that :meth:`save` or
-        :meth:`FleetSession.save` wrote, on a (re)started server.  The
-        instruction is encoded again; everything else is restored as
-        saved."""
-        blob = _read_blob(path, server)
-        sess = cls(server, blob["instr"])
-        sess._restore_host(blob)
-        sess._features[:, :server.n] = torch.from_numpy(blob["features"])
-        sess.state = _state_from_blob(blob, server.device)
-        sess._started = sess.state is not None
-        return sess
-
-
-def _read_blob(path: str, server: NavServer) -> dict:
-    with np.load(path, allow_pickle=False) as f:
-        blob = {k: f[k] for k in f.files}
-    want = (1, server.n, 36, server.d)
-    if blob["features"].shape != want:
-        raise ValueError(f"session blob features are "
-                         f"{blob['features'].shape}, this server's {want}")
-    return blob
-
-
-def _state_from_blob(blob: dict, device) -> EpisodeBatch | None:
-    fields = {k[len("state."):]: torch.from_numpy(v).to(device)
-              for k, v in blob.items() if k.startswith("state.")}
-    return EpisodeBatch(**fields) if fields else None
-
-
-def _with_pending(bank, n: int, pending) -> np.ndarray:
-    """One lane's feature rows [1, n, 36, D] from its bank, with a row
-    queued for the next upload applied."""
-    ft = bank[:, :n].cpu().numpy().copy()
-    if pending is not None:
-        v, row = pending
-        ft[0, v] = row
-    return ft
-
-
-class FleetSession(NavSession):
-    """One slot of a :class:`NavFleet`: host mirrors as a standalone
-    session's, device state, features and instruction in the fleet's
-    batched buffers.  Obtain with :meth:`NavFleet.join`, which uploads the
-    instruction and leaves it pending: the fleet's next tick encodes it,
-    and a tick that fails keeps it pending.  Drive with
-    :meth:`NavFleet.step` (batched) or this object's ``step`` (a one-slot
-    tick)."""
-
-    def __init__(self, fleet: "NavFleet", slot: int, instr_encoding):
-        self.fleet = fleet
-        self.slot = slot
-        self.server = fleet
-        self._init_host(fleet, instr_encoding)
-        fleet._pending_instr[slot] = fleet._upload(self._instr_buf())
-        self.state = None              # the device state lives on the fleet
-
-    def _put_feature_row(self, v: int, row: np.ndarray):
-        # queued for the next tick's upload, keyed by slot: a session
-        # observes one node per tick
-        self.fleet._pending_rows[self.slot] = (v, row)
-
-    def step(self, obs: Observation) -> NavDecision:
-        return self.fleet.step({self.slot: obs})[self.slot]
-
-    def finish(self) -> dict:
-        return self.fleet.finish(self.slot)
-
-    def save(self, path: str):
-        """The slot's episode in the standalone blob format: the lane's
-        state and feature rows out of the fleet's buffers, ``state.scan``
-        0, any row still queued folded in.  It restores on a fresh
-        :class:`NavFleet` (``restore_session``) or a :class:`NavServer`
-        (``NavSession.restore``)."""
-        f = self.fleet
-        self._write_blob(path, _slot_features_with_pending(f, self.slot),
-                         f._lane_state(self.slot) if self._started else None)
-
-
-def _slot_features_with_pending(fleet: "NavFleet", slot: int) -> np.ndarray:
-    """One slot's feature rows in the standalone [1, n, 36, D] layout, with
-    any row queued for the next tick applied."""
-    return _with_pending(fleet._features[slot:slot + 1], fleet.n,
-                         fleet._pending_rows.get(slot))
+        """A session from a blob that :meth:`save` wrote, on a (re)started
+        server: :meth:`NavFleet.restore_session` into a one-slot fleet of
+        its own, the instruction encoded again at once."""
+        return server._alone(lambda group: group.restore_session(path))
 
 
 class NavFleet(NavServer):
@@ -806,8 +669,9 @@ class NavFleet(NavServer):
     together; sessions at different phases coexist (per-lane ``is_first``
     and step clocks).  Lanes that do not submit are frozen: the tick runs
     on a copy of the state and merges lane by lane.  Decisions equal K
-    standalone sessions' (tests/test_torch_fleet.py).  A tick makes one
-    host-to-device copy and one device-to-host copy (module docstring).
+    standalone sessions' (tests/test_torch_fleet.py), which are fleets of
+    one slot.  A tick makes one host-to-device copy and one device-to-host
+    copy (module docstring).
 
     A join uploads its instruction and encodes nothing: the next tick
     encodes every instruction joined since the last one in one
@@ -840,9 +704,11 @@ class NavFleet(NavServer):
                 f"max_feature_gb if the card has the memory for it")
         self.k = slots
         self._features = self._new_bank(slots)
+        self.rollout = Rollout(self._blank_tables(self._features),
+                               self.cfg.env, self.model)
         self._txt = None               # (embeddings, masks, K/V), [K, ...]
         self._state: EpisodeBatch | None = None
-        self._sessions: dict[int, FleetSession] = {}
+        self._sessions: dict[int, NavSession] = {}
         # feature rows observed since the last tick, by slot; cleared once
         # a tick has returned, so a failed tick keeps them for a save
         self._pending_rows: dict[int, tuple[int, np.ndarray]] = {}
@@ -883,7 +749,7 @@ class NavFleet(NavServer):
 
     def _lane_state(self, slot: int) -> EpisodeBatch:
         """Lane ``slot`` of the fleet state as a one-lane state with
-        ``scan`` 0, the standalone layout."""
+        ``scan`` 0, the blob's layout."""
         lane = EpisodeBatch(**{
             f.name: (None if getattr(self._state, f.name) is None
                      else getattr(self._state, f.name)[slot:slot + 1].clone())
@@ -895,9 +761,12 @@ class NavFleet(NavServer):
     def _tick(self, buf, state, any_first: bool):
         """One step for every submitting lane: this tick's feature rows
         into the bank, episode init of the lanes that start
-        (``is_first``), the deferred arrival registration, the decision.
-        Returns (the merged state, the packed result [K, ...]); ``state``
-        is not written."""
+        (``is_first``), the deferred arrival registration, then the step:
+        step-id stamp -> assembly -> model -> argmax -> transition, with
+        this arrival's registration deferred to the next tick
+        (``Rollout.transition(defer_observe=True)``).  Returns (the merged
+        state, one packed int64 row per lane: [chosen, ended, action,
+        traj_len, traj_nodes...]); ``state`` is not written."""
         ctl, packed, rows = self._split(buf)
         self._write_rows(self._features, ctl, rows)
         tables = self._unpack_tables(packed, self._features)
@@ -917,18 +786,25 @@ class NavFleet(NavServer):
         arrival = submit & (ctl[:, MOVED] > 0) & ~is_first & ~state.ended
         relax_observed(eff, tables, eff.cur, arrival)
         _observe(eff, tables)
-        out = self._decide_core(tables, eff, ctl[:, T_STEP].long(), self._txt)
+        r = self.rollout
+        r.t = tables
+        chosen, _, just_ended, action = r.step(
+            eff, r.episode_tables(eff), *self._txt, ctl[:, T_STEP].long(),
+            defer_observe=True, zd=self._zd_for(self.k))
+        out = torch.cat([torch.stack([chosen, just_ended.long(), action,
+                                      eff.traj_len], dim=1),
+                         eff.traj_nodes], dim=1)
         return select_lanes(submit & ~state.ended, eff, state), out
 
     # ---- control-loop API -----------------------------------------------
 
-    def join(self, instr_encoding) -> FleetSession:
+    def join(self, instr_encoding) -> NavSession:
         """Claim a free slot for a new episode.  Its instruction is
         uploaded now and encoded by the next tick (class docstring)."""
         with span("fleet.join"):
             for slot in range(self.k):
                 if slot not in self._sessions:
-                    sess = FleetSession(self, slot, instr_encoding)
+                    sess = NavSession(self, slot, instr_encoding)
                     self._sessions[slot] = sess
                     return sess
         raise RuntimeError(f"all {self.k} fleet slots busy; release one")
@@ -939,20 +815,27 @@ class NavFleet(NavServer):
         self._pending_rows.pop(slot, None)
         self._pending_instr.pop(slot, None)
 
-    def restore_session(self, path: str) -> FleetSession:
-        """Resume a saved session (from :meth:`FleetSession.save` or
-        :meth:`NavSession.save`: one blob format) in a free slot: host
+    def restore_session(self, path: str) -> NavSession:
+        """Resume a saved session (:meth:`NavSession.save`, of a fleet slot
+        or a server's session: one blob format) in a free slot: host
         mirrors as saved, the feature rows and the episode lane into the
         fleet's buffers with ``state.scan`` pointed at the new slot."""
-        blob = _read_blob(path, self)
+        with np.load(path, allow_pickle=False) as f:
+            blob = {k: f[k] for k in f.files}
+        want = (1, self.n, 36, self.d)
+        if blob["features"].shape != want:
+            raise ValueError(f"session blob features are "
+                             f"{blob['features'].shape}, this server's {want}")
         sess = self.join(blob["instr"])
         slot = sess.slot
         sess._restore_host(blob)
         self._features[slot, :self.n] = torch.from_numpy(
             blob["features"][0]).to(self.device)
-        lane = _state_from_blob(blob, self.device)
-        sess._started = lane is not None
-        if lane is not None:
+        fields = {k[len("state."):]: torch.from_numpy(v).to(self.device)
+                  for k, v in blob.items() if k.startswith("state.")}
+        sess._started = bool(fields)
+        if fields:
+            lane = EpisodeBatch(**fields)
             lane.scan = torch.full_like(lane.scan, slot)
             if self._state is None:
                 self._state = self._empty_state()
@@ -1024,14 +907,21 @@ class NavFleet(NavServer):
                        self._pending_rows.get(slot))
         return host, ctl, pre_lens
 
+    @torch.no_grad()
     def finish(self, slot: int) -> dict:
+        """Backtrack slot ``slot``'s episode to its best stop-score node
+        and return its final trajectory record."""
         with span("fleet.finish"):
             sess = self._sessions[slot]
             if not sess._started:
                 raise RuntimeError("no steps taken")
             with span("fleet.walk"):
-                out = self._finish_traj(
+                r, state = self.rollout, self._lane_state(slot)
+                r.t = self._unpack_tables(
                     self._upload(sess._pack_mirrors()[None]),
-                    self._features[slot:slot + 1], self._lane_state(slot))
+                    self._features[slot:slot + 1])
+                stop = r.final_stop_node(state)
+                nodes, ln = r.record_backtrack(state, stop)
+                out = torch.cat([stop[:, None], ln[:, None], nodes], dim=1)
             with span("fleet.fetch"):
                 return sess._final(out[0].cpu().numpy())

@@ -341,6 +341,17 @@ def build_mesh(args):
     return make_mesh(dp * mp, mp=mp, device=dev)
 
 
+def leave_mesh():
+    """End the process group that ``build_mesh`` started, once every rank
+    is done: a rank that exits with the group still up tears it down in
+    its exit handlers, which can abort the process (SIGABRT, "terminate
+    called without an active exception") after its work is done."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def feature_store(args, feat_dim: int):
     """The view-feature store of a dataset tree: the CLIP HDF5 file when it
     exists, else the deterministic hash store (main_nav.py:312-313)."""
@@ -1175,7 +1186,9 @@ def main(argv=None):
     world, splits = build_dataset(args, cfg)
     if mesh is None:
         return modes[args.mode](args, cfg, world, splits)
-    return modes[args.mode](args, cfg, world, splits, mesh=mesh)
+    out = modes[args.mode](args, cfg, world, splits, mesh=mesh)
+    leave_mesh()
+    return out
 
 
 if __name__ == "__main__":

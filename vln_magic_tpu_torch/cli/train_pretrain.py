@@ -124,7 +124,7 @@ def main(argv=None):
     from ..utils.checkpoint import CheckpointManager, save_reference_checkpoint
     from ..parallel import full_state_dict
     from ..utils.logging import MetricsLogger, write_to_record_file
-    from .main_nav import build_mesh
+    from .main_nav import build_mesh, leave_mesh
 
     os.makedirs(args.output_dir, exist_ok=True)
     record = os.path.join(args.output_dir, "pretrain.txt")
@@ -204,6 +204,8 @@ def main(argv=None):
             trainer.model, os.path.join(ckpt_dir, f"model_step_{done}.pt"),
             epoch=done)
     logger.close()
+    if mesh is not None:
+        leave_mesh()
     return trainer
 
 

@@ -10,50 +10,26 @@ line 272); its kernels are in ``csrc/fused_attention.cu``, with the same two
 routes.  Each source's header says what it computes, what bounds it on the
 H100 and how it is laid out.
 
-Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a C interface at first use, into ``vln_magic_tpu_torch/build/``, and
-loaded with ctypes; ``build`` and ``_load`` also serve the observed-subgraph
-walk (``ops/walk.py``, ``csrc/observed_walk.cu``).  A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+Each kernel is compiled with ``nvcc`` into a shared library with a C
+interface at first use and loaded with ctypes (``ops/build.py``).  A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("packed_attention", "fused_attention", "observed_walk")
-BUILD_DIR = os.path.join(_PKG, "build")
+from .build import load
+
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_FUSED_KEYS = 256          # csrc/fused_attention.cu keeps 8 key tiles
 MAX_TC_KEYS = 256             # the tensor-core routes hold a row's logits
                               # in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_PACKED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_void_p])
-_FUSED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_void_p])
-# each kernel's exported C functions and their argument types
-_SYMBOLS = {
-    "packed_attention": {"vln_packed_attention": _PACKED_ARGS,
-                         "vln_packed_attention_tc": _PACKED_ARGS},
-    "fused_attention": {"vln_fused_attention": _FUSED_ARGS,
-                        "vln_fused_attention_tc": _FUSED_ARGS,
-                        "vln_fused_attention_tc_smem": [ctypes.c_int] * 4},
-    "observed_walk": {"vln_observed_walk": [ctypes.c_void_p] * 2
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
-}
-
-_libs: dict = {}
-_lib_lock = threading.Lock()
 
 
 def packed_attention_reference(q, k, v, mask_bias, sprel_bias, num_heads):
@@ -88,62 +64,6 @@ def packed_attention_error(q, k, v, mask_bias, sprel_bias, num_heads, out,
     out32 = packed_attention_reference(f(q), f(k), f(v), *args)
     pv_abs = packed_attention_reference(f(q), f(k), f(v).abs(), *args)
     return _rounding_error(out, out32, pv_abs, q.dtype, atol)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the kernels in vln_magic_tpu_torch/csrc/")
-    return path
-
-
-def _source(name: str) -> str:
-    return os.path.join(_PKG, "csrc", f"{name}.cu")
-
-
-def _lib_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-
-
-def build(names=KERNELS, reports: dict | None = None) -> dict:
-    """Compile each named kernel (once per source content) and return
-    ``{name: library path}``.  Given a dict, ``reports`` receives ptxas'
-    register, spill and shared memory report of each kernel it builds."""
-    paths = {}
-    for name in names:
-        lib_path = paths[name] = _lib_path(name)
-        if os.path.exists(lib_path):
-            continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, _source(name)]
-        if reports is not None:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} ({res.returncode}):"
-                               f"\n{res.stderr}")
-        if reports is not None:
-            reports[name] = res.stderr
-        os.replace(tmp, lib_path)
-    return paths
-
-
-def _load(name: str):
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(build((name,))[name])
-            for symbol, argtypes in _SYMBOLS[name].items():
-                fn = getattr(lib, symbol)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[name] = lib
-    return _libs[name]
 
 
 def _check(q, k, v, mask_bias, sprel_bias, num_heads):
@@ -210,7 +130,7 @@ def packed_attention(q, k, v, mask_bias, sprel_bias=None, *, num_heads):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        lib = _load("packed_attention")
+        lib = load("packed_attention")
         fn = lib.vln_packed_attention_tc if tc else lib.vln_packed_attention
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
                 None if sprel_bias is None else sprel_bias.data_ptr(),
@@ -369,7 +289,7 @@ def fused_attention(q, k, v, bias):
     strides = (ctypes.c_longlong * 4)(*bias4.stride())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        lib = _load("fused_attention")
+        lib = load("fused_attention")
         fn = lib.vln_fused_attention_tc if tc else lib.vln_fused_attention
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
                 ctypes.addressof(strides), out.data_ptr(), probs.data_ptr(),

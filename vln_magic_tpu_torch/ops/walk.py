@@ -2,8 +2,8 @@
 
 ``observed_walk`` walks every lane from its current node toward its target
 over the observed subgraph in one launch of ``csrc/observed_walk.cu``
-(built and loaded by ``ops/attention.py``'s ``build`` and ``_load``); the
-source's header says what it computes and how it is laid out.
+(built and loaded by ``ops/build.py``); the source's header says what it
+computes and how it is laid out.
 ``agent/rollout.py`` ``Rollout._walk_observed`` takes it for CUDA tensors,
 and its own torch loop (``Rollout._walk_loop``) on the CPU.
 ``observed_walk_reference`` is the same walk in NumPy, lane by lane.
@@ -16,7 +16,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .attention import _load
+from .build import load
 
 INF_DIST = 1e9        # observed-graph distance of an unreached pair
 
@@ -119,7 +119,7 @@ def observed_walk(cand_ids, cand_mask, cand_dist, scan, cur, target, moving,
                                          for st in x.stride()))
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _load("observed_walk").vln_observed_walk(
+        rc = load("observed_walk").vln_observed_walk(
             ctypes.addressof(ptrs), ctypes.addressof(strides), b, c, hops,
             nodes.shape[1] - 1, stream)
     if rc != 0:
