@@ -429,3 +429,95 @@ def test_a_server_session_decides_through_the_fleet_tick(setup, monkeypatch):
         == s["ref"][0]
     n = len(s["ref"][0][0])
     assert ticks == [1] * n and batches == [1] * n
+
+
+def test_a_tick_that_fails_after_its_upload_changes_no_decision(setup,
+                                                                monkeypatch):
+    """Three episodes on a fleet of 3 whose second tick raises after its
+    upload (the upload buffer may still be in a copy): the tick retried
+    with the same observations, and every one after it, decide as the
+    uninterrupted standalone sessions."""
+    s = setup
+    f = fleet(s, 3)
+    items = s["items"][:3]
+    cur = {slot: int(it["path_idx"][0]) for slot, it in enumerate(items)}
+    actions, finals = {slot: [] for slot in cur}, {}
+    for slot, it in enumerate(items):
+        f.join(it["instr_encoding"])
+    tick = 0
+    while len(finals) < 3:
+        sub = {slot: obs_at(s, items[slot], cur[slot]) for slot in cur
+               if slot not in finals}
+        if tick == 1:
+            monkeypatch.setattr(f, "_tick", lambda *a: 1 / 0)
+            with pytest.raises(ZeroDivisionError):
+                f.step(sub)
+            monkeypatch.undo()
+        for slot, dec in f.step(sub).items():
+            g = s["world"].graphs[items[slot]["scan_idx"]]
+            if dec.target is not None:
+                cur[slot] = g.index[dec.target]
+            actions[slot].append(-1 if dec.target is None else cur[slot])
+            if dec.stop:
+                finals[slot] = f.finish(slot)
+        tick += 1
+    assert tick > 1
+    for slot in cur:
+        assert (actions[slot], finals[slot]) == s["ref"][slot], slot
+
+
+def empty_row(f):
+    """The upload row of a slot that holds nothing: zeros, candidate ids
+    -1 and the trash row's index ``n`` as the feature row."""
+    row = np.zeros(len(serving.CTL) + int(f._off[-1]) + 36 * f.d,
+                   np.float32)
+    at = len(serving.CTL) + f._off
+    row[at[2]:at[3]] = -1
+    row[serving.FEAT_V] = f.n
+    return row
+
+
+def test_a_released_slot_and_its_next_session_start_from_the_empty_row(setup):
+    """A slot's upload row after a decision, a finish and a release, and
+    after a new session joins it, is the empty row, bit for bit; a slot
+    never claimed holds it too."""
+    s = setup
+    f = fleet(s, 2)
+    it = s["items"][0]
+    sess = f.join(it["instr_encoding"])
+    sess.step(obs_at(s, it, int(it["path_idx"][0])))
+    f.finish(0)
+    assert (f._rows[0] != empty_row(f)).any()
+    f.release(0)
+    np.testing.assert_array_equal(f._rows[0].view(np.int32),
+                                  empty_row(f).view(np.int32))
+    assert f.join(s["items"][1]["instr_encoding"]).slot == 0
+    for slot in (0, 1):
+        np.testing.assert_array_equal(f._rows[slot].view(np.int32),
+                                      empty_row(f).view(np.int32))
+
+
+def test_a_blob_keeps_the_mirror_dtypes_and_shapes(setup, tmp_path):
+    """A saved session's mirrors keep the blob format: f32 positions,
+    distances and candidate distance, heading and elevation tables, int32
+    candidate ids and views, at [n, 3], [n, n] and [n, c]; the ids equal
+    the slot's row."""
+    s = setup
+    it = s["items"][0]
+    sess = fleet(s, 2).join(it["instr_encoding"])
+    sess.step(obs_at(s, it, int(it["path_idx"][0])))
+    path = str(tmp_path / "dtypes.blob")
+    sess.save(path)
+    n, c = s["n"], s["c"]
+    want = {"pos": (np.float32, (n, 3)), "dist": (np.float32, (n, n)),
+            "cand_ids": (np.int32, (n, c)), "cand_dist": (np.float32, (n, c)),
+            "cand_view": (np.int32, (n, c)),
+            "cand_heading": (np.float32, (n, c)),
+            "cand_elev": (np.float32, (n, c))}
+    with np.load(path, allow_pickle=False) as blob:
+        got = {k[len("mirrors."):]: blob[k] for k in blob.files
+               if k.startswith("mirrors.")}
+        assert {k: (v.dtype, v.shape) for k, v in got.items()} == want
+        assert (got["cand_ids"] >= 0).any()
+        np.testing.assert_array_equal(got["cand_ids"],
+                                      sess._mirrors()["cand_ids"])

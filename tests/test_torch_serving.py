@@ -332,3 +332,92 @@ def test_device_defaults_to_cuda(setup, tmp_path):
                  lambda: NavServer.from_bundle(path)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def random_observation(rng, names, c, d, node=None, twice=False):
+    """An observation at ``node`` (default a random name) listing up to ``c``
+    candidates drawn from ``names`` with replacement, so that a node may be
+    listed twice and the observed node may list itself; every listing has
+    its own position, a heading and elevation that are None a third of the
+    time each, and a view that is None a third of the time.  ``twice``
+    lists one node twice and the observed node once."""
+    node = names[rng.integers(len(names))] if node is None else node
+    picks = [names[i] for i in rng.integers(len(names),
+                                            size=rng.integers(c + 1))]
+    if twice:
+        picks = (picks + [names[0], names[0], node])[-c:]
+    pos = lambda: tuple(float(x) for x in rng.normal(0.0, 3.0, 3))
+    maybe = lambda x: None if rng.random() < 1 / 3 else x
+    cands = [serving.Candidate(
+        node=name, position=pos(), dist=float(rng.uniform(0.5, 4.0)),
+        heading=maybe(float(rng.uniform(-np.pi, np.pi))),
+        elevation=maybe(float(rng.uniform(-0.5, 0.5))),
+        view=maybe(int(rng.integers(36)))) for name in picks]
+    return serving.Observation(node=node, position=pos(), heading=0.0,
+                               pano_feats=np.zeros((36, d), np.float32),
+                               candidates=cands)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_batched_fold_equals_jax_ingest_bit_for_bit(setup, seed,
+                                                        monkeypatch):
+    """A fleet tick folds all of its observations into the mirrors in one
+    pass with one geometry call; after every tick, each slot's seven
+    mirrors (float ones bit for bit) and its node ids equal what JAX's
+    ``NavSession._ingest`` leaves after the same observation, one edge at a
+    time.  Three slots over several episodes, a slot released and joined
+    again between them; candidates with no heading, elevation or view,
+    nodes listed twice, observed nodes that list themselves and rows with
+    no free slot all occur."""
+    s = setup
+    rng = np.random.default_rng(seed)
+    f = serving.NavFleet(s["cfg"], s["params"], slots=3, max_nodes=s["n"],
+                         max_cands=s["c"], device="cpu")
+    names = [f"p{i}" for i in range(s["n"])]
+    instr = s["items"][0]["instr_encoding"]
+    calls = []
+    real = serving.geo.rel_pos_features
+    monkeypatch.setattr(serving.geo, "rel_pos_features",
+                        lambda *a: calls.append(1) or real(*a))
+    seen = {"full": 0, "missing": 0, "twice": 0, "self": 0}
+    for episode in range(4):
+        jax_sess = {}
+        for slot in range(3):
+            if episode == 0 or slot == episode % 3:
+                f.release(slot)
+                assert f.join(instr).slot == slot
+                jax_sess[slot] = s["jserver"].new_session(instr)
+            else:
+                jax_sess[slot] = jax_prev[slot]
+        for tick in range(6):
+            batch = {slot: random_observation(rng, names, s["c"], 32,
+                                              twice=tick == 0)
+                     for slot in range(3)}
+            calls.clear()
+            f._submissions(batch)
+            assert len(calls) == 1
+            for slot, obs in batch.items():
+                jax_sess[slot]._ingest(obs)
+                listed = [cand.node for cand in obs.candidates]
+                seen["missing"] += any(cand.heading is None
+                                       for cand in obs.candidates)
+                seen["twice"] += len(set(listed)) < len(listed)
+                seen["self"] += obs.node in listed
+                port, want = f._sessions[slot], jax_sess[slot]
+                assert port._names == want._names
+                assert f._pending_rows[slot][0] == want._pending_row[0]
+                got = port._mirrors()
+                for name in serving.MIRRORS:
+                    ref = getattr(want, {"pos": "h_pos", "dist": "h_dist",
+                                         "cand_elev": "h_cand_elev"}.get(
+                                             name, "h_" + name))
+                    if name in serving.INT_MIRRORS:
+                        np.testing.assert_array_equal(
+                            got[name], ref.astype(np.float32), err_msg=name)
+                    else:
+                        np.testing.assert_array_equal(
+                            got[name].view(np.int32), ref.view(np.int32),
+                            err_msg=name)
+                seen["full"] += int((got["cand_ids"] >= 0).all(1).any())
+        jax_prev = jax_sess
+    assert all(seen.values()), seen

@@ -36,7 +36,10 @@ host-to-device copy of the serving loop goes through ``NavServer._upload``
   (submit, is_first, moved, node, heading, step, feature row index:
   ``CTL``), its packed mirrors (P values) and its arrival node's feature
   row, which is written into the bank in place; and one device-to-host
-  copy, the packed int64 result;
+  copy, the packed int64 result.  The buffer is the fleet's own, made once
+  (pinned on the card): each session's mirrors are views of its slot's
+  row, so a tick writes only what changed, and waits for the previous
+  copy out of the buffer to end before it does;
 - ``finish`` makes one copy each way.
 
 A tick runs the step on ``EpisodeBatch.copy_for_step`` and merges lane by
@@ -93,6 +96,11 @@ BUNDLE_FORMAT = "vln_magic_tpu_torch.serving_bundle.v1"
 # columns of the control block at the head of each lane's upload row
 CTL = ("submit", "is_first", "moved", "node", "heading", "t_step", "feat_v")
 (SUBMIT, IS_FIRST, MOVED, NODE, HEADING, T_STEP, FEAT_V) = range(len(CTL))
+# the mirrors after the control block, in order; the integer tables are
+# exact f32 values there and int32 in a session blob
+MIRRORS = ("pos", "dist", "cand_ids", "cand_dist", "cand_view",
+           "cand_heading", "cand_elev")
+INT_MIRRORS = ("cand_ids", "cand_view")
 
 
 @dataclasses.dataclass
@@ -209,37 +217,33 @@ class NavServer:
         sizes = [n * 3, n * n] + [n * c] * 5
         self._off = np.cumsum([0] + sizes)
         self._width = len(CTL) + int(self._off[-1]) + 36 * self.d
+        self._copied = None    # the event at the end of the last upload
 
     # ---- host <-> device ------------------------------------------------
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
+    def _upload(self, host) -> torch.Tensor:
         """The one host-to-device copy of a session start, decision, tick or
-        finish.  On the card it goes through pinned memory (PyTorch's
-        caching host allocator keeps the block until the copy is done) as
-        one asynchronous DMA copy."""
-        x = torch.from_numpy(np.ascontiguousarray(host))
+        finish, from a numpy array or a host tensor.  On the card it goes
+        through pinned memory (PyTorch's caching host allocator keeps a
+        block it pins until the copy is done; a fleet's upload buffer is
+        pinned already) as one asynchronous DMA copy, whose end
+        ``_copied`` marks."""
+        x = host if isinstance(host, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(host))
         if self.device.type != "cuda":
-            return x
-        return x.pin_memory().to(self.device, non_blocking=True)
+            return x.clone()
+        out = (x if x.is_pinned() else x.pin_memory()).to(self.device,
+                                                           non_blocking=True)
+        if self._copied is None:
+            self._copied = torch.cuda.Event()
+        self._copied.record()
+        return out
 
-    def _host(self, k: int) -> np.ndarray:
-        """A zeroed [k, width] upload: empty mirrors (candidate ids -1) and
-        no feature row (``FEAT_V`` = n, the bank's trash row)."""
-        host = np.zeros((k, self._width), np.float32)
-        p = len(CTL) + self._off
-        host[:, p[2]:p[3]] = -1
-        host[:, FEAT_V] = self.n
-        return host
-
-    def _fill(self, lane: np.ndarray, ctl: dict, mirrors: np.ndarray, pending):
-        """One lane's upload row: control values, mirrors, queued row."""
-        for name, val in ctl.items():
-            lane[CTL.index(name)] = val
-        p = len(CTL)
-        lane[p:p + self._off[-1]] = mirrors
-        if pending is not None:
-            lane[FEAT_V] = pending[0]
-            lane[p + self._off[-1]:] = pending[1].ravel()
+    def _writable(self):
+        """Wait until no copy out of host memory is in flight (the last
+        upload's event; a copy that a failed tick left too)."""
+        if self._copied is not None:
+            self._copied.synchronize()
 
     def _new_bank(self, k: int) -> torch.Tensor:
         """A feature bank [k, n + 1, 36, D] f32; row n is the trash row
@@ -421,9 +425,10 @@ class NavServer:
 
 
 class NavSession:
-    """One episode: host mirrors of its map and its trajectory record, in
-    slot ``slot`` of a :class:`NavFleet`, whose batched buffers hold its
-    device state, feature rows and instruction encoding.  Obtain with
+    """One episode: its node names and trajectory record, in slot ``slot``
+    of a :class:`NavFleet`, whose batched buffers hold its map's host
+    mirrors (views of the slot's row of the fleet's upload buffer), device
+    state, feature rows and instruction encoding.  Obtain with
     :meth:`NavServer.new_session` (a one-slot fleet of its own) or
     :meth:`NavFleet.join`, which uploads the instruction and leaves it
     pending: the fleet's next tick encodes it, and a tick that fails keeps
@@ -433,14 +438,7 @@ class NavSession:
         self.fleet, self.slot = fleet, slot
         self.cfg = fleet.cfg
         self._instr = np.asarray(instr_encoding)
-        n, c = self.n, self.c = fleet.n, fleet.c
-        self.h_pos = np.zeros((n, 3), np.float32)
-        self.h_cand_ids = np.full((n, c), -1, np.int32)
-        self.h_cand_dist = np.zeros((n, c), np.float32)
-        self.h_cand_view = np.zeros((n, c), np.int32)
-        self.h_cand_heading = np.zeros((n, c), np.float32)
-        self.h_cand_elev = np.zeros((n, c), np.float32)
-        self.h_dist = np.zeros((n, n), np.float32)
+        self.n, self.c = fleet.n, fleet.c
         self._ids: dict[str, int] = {}
         self._names: list[str] = []
         self.t_step = 0
@@ -470,15 +468,6 @@ class NavSession:
             self._names.append(name)
         return self._ids[name]
 
-    def _pack_mirrors(self) -> np.ndarray:
-        """The mirrors as one f32 vector (ints exact in f32 below 2^24)."""
-        return np.concatenate([
-            self.h_pos.ravel(), self.h_dist.ravel(),
-            self.h_cand_ids.astype(np.float32).ravel(),
-            self.h_cand_dist.ravel(),
-            self.h_cand_view.astype(np.float32).ravel(),
-            self.h_cand_heading.ravel(), self.h_cand_elev.ravel()])
-
     def _check(self, obs: Observation):
         """Reject an observation before anything changes: one at another
         node than the session's current one, too many candidates, features
@@ -500,64 +489,10 @@ class NavSession:
                 f"max_nodes={self.n} exhausted; raise NavServer max_nodes "
                 f"for larger deployment sites")
 
-    def _ingest(self, obs: Observation) -> int:
-        """Fold a checked observation into the mirrors and queue its
-        feature row."""
-        v = self._intern(obs.node)
-        self.h_pos[v] = np.asarray(obs.position, np.float32)
-        ids, dists, views, heads, elevs = [], [], [], [], []
-        for cand in obs.candidates:
-            ci = self._intern(cand.node)
-            self.h_pos[ci] = np.asarray(cand.position, np.float32)
-            h, e = cand.heading, cand.elevation
-            if h is None or e is None:
-                h, e, _ = geo.rel_pos_features(self.h_pos[v], self.h_pos[ci])
-                h, e = float(h), float(e)
-            view = cand.view if cand.view is not None else int(
-                geo.nearest_view_index(h, e))
-            ids.append(ci)
-            dists.append(float(cand.dist))
-            views.append(view)
-            heads.append(h)
-            elevs.append(e)
-            # symmetric edge weight for the observed-subgraph relax
-            # (rollout.relax_observed reads t.dist[scan, v, cand])
-            self.h_dist[v, ci] = self.h_dist[ci, v] = float(cand.dist)
-            self._reverse_fill(ci, v, float(cand.dist))
-        m = len(ids)
-        self.h_cand_ids[v] = -1
-        self.h_cand_ids[v, :m] = ids
-        self.h_cand_dist[v, :m] = dists
-        self.h_cand_view[v, :m] = views
-        self.h_cand_heading[v, :m] = heads
-        self.h_cand_elev[v, :m] = elevs
-        self._put_feature_row(v, np.asarray(obs.pano_feats, np.float32))
-        return v
-
     def _put_feature_row(self, v: int, row: np.ndarray):
         # queued for the next tick's upload, keyed by slot: a session
         # observes one node per tick
         self.fleet._pending_rows[self.slot] = (v, row)
-
-    def _reverse_fill(self, frm: int, to: int, dist: float):
-        """Record the reverse edge ``frm -> to`` so the observed-graph walk
-        can route through frontier nodes (offline, the complete world tables
-        carry every node's candidate row; the walk only uses edges with a
-        visited endpoint, and those are exactly the reverse edges of
-        reported candidates when connectivity is symmetric)."""
-        row = self.h_cand_ids[frm]
-        if (row == to).any():
-            return
-        free = np.flatnonzero(row < 0)
-        if len(free) == 0:
-            return   # row full: the node was (or will be) directly observed
-        j = free[0]
-        h, e, _ = geo.rel_pos_features(self.h_pos[frm], self.h_pos[to])
-        self.h_cand_ids[frm, j] = to
-        self.h_cand_dist[frm, j] = dist
-        self.h_cand_view[frm, j] = int(geo.nearest_view_index(h, e))
-        self.h_cand_heading[frm, j] = float(h)
-        self.h_cand_elev[frm, j] = float(e)
 
     def _record(self, out: np.ndarray, obs: Observation, pre_len: int,
                 latency_ms: float) -> NavDecision:
@@ -619,7 +554,8 @@ class NavSession:
                 "last_moved": np.bool_(self._last_moved),
                 "cur": np.int64(self._cur), "ended": np.bool_(self._ended)}
         for name, arr in self._mirrors().items():
-            blob[f"mirrors.{name}"] = arr
+            blob[f"mirrors.{name}"] = (arr.astype(np.int32)
+                                       if name in INT_MIRRORS else arr)
         if self._started:
             state = f._lane_state(slot)
             for fl in dataclasses.fields(EpisodeBatch):
@@ -630,13 +566,12 @@ class NavSession:
             np.savez(out, **blob)
 
     def _mirrors(self) -> dict:
-        return {"pos": self.h_pos, "dist": self.h_dist,
-                "cand_ids": self.h_cand_ids, "cand_dist": self.h_cand_dist,
-                "cand_view": self.h_cand_view,
-                "cand_heading": self.h_cand_heading,
-                "cand_elev": self.h_cand_elev}
+        """The map's mirrors by name (``MIRRORS``): views of the slot's row
+        of the fleet's upload buffer, all f32."""
+        return {name: m[self.slot] for name, m in self.fleet._m.items()}
 
     def _restore_host(self, blob: dict):
+        self.fleet._writable()
         for name, arr in self._mirrors().items():
             got = blob[f"mirrors.{name}"]
             if got.shape != arr.shape:
@@ -716,6 +651,27 @@ class NavFleet(NavServer):
         # slot; cleared once the next tick has written them
         self._pending_instr: dict[int, torch.Tensor] = {}
         self._slot_ids = torch.arange(slots, device=self.device)
+        # the tick's upload [K, width], written in place and pinned on the
+        # card; ``_m`` views its mirrors as [K, ...] tables by name
+        self._staging = torch.empty((slots, self._width),
+                                    dtype=torch.float32,
+                                    pin_memory=self.device.type == "cuda")
+        self._rows = self._staging.numpy()
+        at = len(CTL) + self._off
+        shapes = [(n, 3), (n, n)] + [(n, self.c)] * 5
+        self._m = {name: self._rows[:, at[i]:at[i + 1]].reshape(
+            (slots,) + shape) for i, (name, shape) in
+            enumerate(zip(MIRRORS, shapes))}
+        self._clear(slice(None))
+        self._fed: set[int] = set()    # rows whose feature columns are set
+
+    def _clear(self, at):
+        """Rows ``at`` of the upload buffer empty: no control values, empty
+        mirrors (candidate ids -1) and no feature row (``FEAT_V`` = n, the
+        bank's trash row)."""
+        self._rows[at] = 0
+        self._m["cand_ids"][at] = -1
+        self._rows[at, FEAT_V] = self.n
 
     def _encode_pending(self):
         """Encode every pending instruction in one batch and write each into
@@ -811,6 +767,8 @@ class NavFleet(NavServer):
 
     def release(self, slot: int):
         self._sessions.pop(slot, None)
+        self._writable()
+        self._clear(slot)
         # never into a re-claimed slot
         self._pending_rows.pop(slot, None)
         self._pending_instr.pop(slot, None)
@@ -852,18 +810,16 @@ class NavFleet(NavServer):
         with span("fleet.step"):
             t0 = time.perf_counter()
             with span("fleet.ingest"):
-                host, ctl, pre_lens = self._submissions(obs_by_slot)
+                any_first, pre_lens = self._submissions(obs_by_slot)
             with span("fleet.upload"):
-                buf = self._upload(host)
+                buf = self._upload(self._staging)
             if self._pending_instr:
                 with span("fleet.language"):
                     self._encode_pending()
             with span("fleet.decide"):
                 if self._state is None:
                     self._state = self._empty_state()
-                state, out = self._tick(
-                    buf, self._state,
-                    any(c["is_first"] for c in ctl.values()))
+                state, out = self._tick(buf, self._state, any_first)
             with span("fleet.fetch"):
                 out = out.cpu().numpy()          # the one device-to-host copy
             self._state = state
@@ -879,9 +835,10 @@ class NavFleet(NavServer):
             return decisions
 
     def _submissions(self, obs_by_slot):
-        """Check every submission, then fold each into its session's
-        mirrors: (the tick's upload [K, width], each submitting slot's
-        control values, its trajectory length before the tick).  A rejected
+        """Check every submission, then fold them all into their sessions'
+        mirrors and write the tick's control values and queued feature rows
+        into the upload buffer: (whether a lane starts its episode, each
+        submitting slot's trajectory length before the tick).  A rejected
         submission raises before any session changes."""
         for slot, obs in obs_by_slot.items():
             sess = self._sessions.get(slot)
@@ -892,20 +849,135 @@ class NavFleet(NavServer):
                 raise RuntimeError(
                     f"slot {slot}: episode already ended; call finish()")
             sess._check(obs)
-        ctl, pre_lens = {}, {}
+        self._writable()
+        nodes = self._fold(obs_by_slot)
+        rows = self._rows
+        rows[:, :len(CTL)] = 0
+        rows[:, FEAT_V] = self.n
+        any_first, pre_lens = False, {}
         for slot, obs in obs_by_slot.items():
             sess = self._sessions[slot]
             first = not sess._started
-            ctl[slot] = {"submit": 1, "is_first": first,
-                         "moved": sess._last_moved, "node": sess._ingest(obs),
-                         "heading": obs.heading if first else 0.0,
-                         "t_step": sess.t_step}
+            any_first |= first
+            rows[slot, :FEAT_V] = (1, first, sess._last_moved, nodes[slot],
+                                   obs.heading if first else 0.0,
+                                   sess.t_step)
+            sess._put_feature_row(nodes[slot],
+                                  np.asarray(obs.pano_feats, np.float32))
             pre_lens[slot] = max(len(sess._traj), 1)
-        host = self._host(self.k)
-        for slot, sess in self._sessions.items():
-            self._fill(host[slot], ctl.get(slot, {}), sess._pack_mirrors(),
-                       self._pending_rows.get(slot))
-        return host, ctl, pre_lens
+        # a lane with no queued row writes zeros into its trash row, so
+        # that its whole bank comes back bit for bit
+        feats = len(CTL) + int(self._off[-1])
+        for slot in self._fed - self._pending_rows.keys():
+            rows[slot, feats:] = 0
+        self._fed = set(self._pending_rows)
+        for slot, (v, row) in self._pending_rows.items():
+            rows[slot, FEAT_V] = v
+            rows[slot, feats:] = row.ravel()
+        return any_first, pre_lens
+
+    def _fold(self, obs_by_slot) -> dict[int, int]:
+        """Fold the checked observations into their sessions' mirrors in one
+        pass over every candidate edge of the tick, with one geometry call
+        for all of them; returns each slot's observed node.  The mirrors
+        come out bit for bit as JAX's ``NavSession._ingest`` leaves them,
+        one candidate at a time:
+
+        - the observed node and each candidate take their positions (the
+          last listing of a node wins), each edge its distance both ways
+          (``relax_observed`` reads ``t.dist[scan, v, cand]``);
+        - each candidate's row takes the reverse edge to the observed node
+          in its first free slot, unless the row holds it already or is
+          full (``_reverse_fill``: the observed-graph walk routes through
+          frontier nodes by these edges; a full row's node was, or will
+          be, observed itself); a node listed twice decides at its first
+          listing;
+        - then the observed node's candidate ids are reset and its row
+          written in listing order.
+
+        Heading, elevation and view come from the geometry where not given
+        (a reverse edge's always), at the positions of that moment in the
+        loop: a candidate that names the observed node moves it for the
+        candidates after it."""
+        m, n = self._m, self.n
+        slot_o, node_o, pos_o, size_o, node_e, cands = [], [], [], [], [], []
+        for slot, obs in obs_by_slot.items():
+            sess = self._sessions[slot]
+            slot_o.append(slot)
+            node_o.append(sess._intern(obs.node))
+            pos_o.append(obs.position)
+            size_o.append(len(obs.candidates))
+            node_e += [sess._intern(c.node) for c in obs.candidates]
+            cands += obs.candidates
+        if not slot_o:
+            return {}
+        edges = np.arange(len(cands))
+        size_o = np.asarray(size_o)
+        start_o = np.cumsum(size_o) - size_o
+        o_e = np.repeat(np.arange(len(slot_o)), size_o)
+        slot_o, node_o = np.asarray(slot_o), np.asarray(node_o)
+        s_e, v_e, node_e = slot_o[o_e], node_o[o_e], np.asarray(node_e, int)
+        col_e = edges - start_o[o_e]
+        pos_o = np.asarray(pos_o, np.float32).reshape(-1, 3)
+        pos_e = np.asarray([c.position for c in cands],
+                           np.float32).reshape(-1, 3)
+        dist = np.asarray([float(c.dist) for c in cands], np.float64)
+        # where the observed node stands at each edge: at its latest
+        # listing of itself in its observation, else where it reported
+        self_at = np.maximum.accumulate(np.where(node_e == v_e, edges, -1))
+        here = np.where((self_at >= start_o[o_e])[:, None],
+                        pos_e[np.maximum(self_at, 0)], pos_o[o_e])
+
+        keys = np.concatenate([slot_o * n + node_o, s_e * n + node_e])
+        last = _last(keys)
+        m["pos"][keys[last] // n, keys[last] % n] = \
+            np.concatenate([pos_o, pos_e])[last]
+        key_e = s_e * n + node_e
+        last = _last(key_e)
+        m["dist"][s_e[last], v_e[last], node_e[last]] = dist[last]
+        m["dist"][s_e[last], node_e[last], v_e[last]] = dist[last]
+
+        rev = _first(key_e)
+        held = m["cand_ids"][s_e[rev], node_e[rev]]
+        free = held < 0
+        fill = free.any(1) & ~(held == v_e[rev, None]).any(1)
+        rev, col_r = rev[fill], free[fill].argmax(1)
+        given = np.asarray([c.heading is not None and c.elevation is not None
+                            for c in cands], bool)
+        heading = np.asarray([c.heading if g else 0.0
+                              for c, g in zip(cands, given)], np.float64)
+        elev = np.asarray([c.elevation if g else 0.0
+                           for c, g in zip(cands, given)], np.float64)
+        view = np.asarray([0 if c.view is None else c.view for c in cands],
+                          np.int64)
+        fwd = np.flatnonzero(~given)
+        unseen = np.flatnonzero([c.view is None for c in cands])
+        r = len(rev)
+        if r or len(fwd) or len(unseen):
+            with span("fleet.geometry"):
+                h, e, _ = geo.rel_pos_features(
+                    np.concatenate([pos_e[rev], here[fwd]]),
+                    np.concatenate([here[rev], pos_e[fwd]]))
+                heading[fwd], elev[fwd] = h[r:], e[r:]
+                views = geo.nearest_view_index(
+                    np.concatenate([h[:r], heading[unseen]]),
+                    np.concatenate([e[:r], elev[unseen]]))
+            view[unseen] = views[r:]
+            at = (s_e[rev], node_e[rev], col_r)
+            m["cand_ids"][at] = v_e[rev]
+            m["cand_dist"][at] = dist[rev]
+            m["cand_view"][at] = views[:r]
+            m["cand_heading"][at] = h[:r]
+            m["cand_elev"][at] = e[:r]
+
+        m["cand_ids"][slot_o, node_o] = -1
+        at = (s_e, v_e, col_e)
+        m["cand_ids"][at] = node_e
+        m["cand_dist"][at] = dist
+        m["cand_view"][at] = view
+        m["cand_heading"][at] = heading
+        m["cand_elev"][at] = elev
+        return dict(zip(slot_o.tolist(), node_o.tolist()))
 
     @torch.no_grad()
     def finish(self, slot: int) -> dict:
@@ -917,11 +989,22 @@ class NavFleet(NavServer):
                 raise RuntimeError("no steps taken")
             with span("fleet.walk"):
                 r, state = self.rollout, self._lane_state(slot)
+                at = len(CTL) + self._off
                 r.t = self._unpack_tables(
-                    self._upload(sess._pack_mirrors()[None]),
+                    self._upload(self._staging[slot:slot + 1, at[0]:at[-1]]),
                     self._features[slot:slot + 1])
                 stop = r.final_stop_node(state)
                 nodes, ln = r.record_backtrack(state, stop)
                 out = torch.cat([stop[:, None], ln[:, None], nodes], dim=1)
             with span("fleet.fetch"):
                 return sess._final(out[0].cpu().numpy())
+
+
+def _first(keys: np.ndarray) -> np.ndarray:
+    """The index of each distinct key's first occurrence."""
+    return np.unique(keys, return_index=True)[1]
+
+
+def _last(keys: np.ndarray) -> np.ndarray:
+    """The index of each distinct key's last occurrence."""
+    return len(keys) - 1 - _first(keys[::-1])
